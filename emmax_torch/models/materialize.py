@@ -1,0 +1,42 @@
+"""Backbone ids -> static configs and image transforms, port of the part of
+``emmax_tpu/models/materialize.py`` that the Emma-X flagship needs."""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from emmax_torch.models.llama import LLAMA2_7B, LlamaConfig
+from emmax_torch.models.vit import DINOV2_L_REG4, SIGLIP_SO400M, ViTConfig
+from emmax_torch.ops.image import (ImageTransformConfig,
+                                   dinosiglip_transform_configs)
+
+VISION_BACKBONES: Dict[str, Tuple[Tuple[str, ViTConfig], ...]] = {
+    "dinosiglip-vit-so-224px": (("dino", DINOV2_L_REG4),
+                                ("siglip", SIGLIP_SO400M)),
+}
+
+# family names, which pick the prompt builder
+LLM_BACKBONES: Dict[str, Tuple[LlamaConfig, str]] = {
+    "llama2-7b-pure": (LLAMA2_7B, "llama2-pure"),
+}
+
+
+def get_vision_config(vision_backbone_id: str):
+    if vision_backbone_id not in VISION_BACKBONES:
+        raise KeyError(f"unknown vision backbone {vision_backbone_id!r}; "
+                       f"known: {sorted(VISION_BACKBONES)}")
+    return VISION_BACKBONES[vision_backbone_id]
+
+
+def get_llm_config(llm_backbone_id: str) -> Tuple[LlamaConfig, str]:
+    if llm_backbone_id not in LLM_BACKBONES:
+        raise KeyError(f"unknown llm backbone {llm_backbone_id!r}; "
+                       f"known: {sorted(LLM_BACKBONES)}")
+    return LLM_BACKBONES[llm_backbone_id]
+
+
+def get_image_transforms(vision_backbone_id: str, image_resize_strategy: str
+                         ) -> Dict[str, ImageTransformConfig]:
+    if vision_backbone_id.startswith("dinosiglip"):
+        return dinosiglip_transform_configs(224, image_resize_strategy)
+    raise ValueError(f"unknown vision backbone {vision_backbone_id!r}")
