@@ -30,7 +30,29 @@ Phases, each raising on failure (the script then exits non-zero):
    memory, and each kernel's launches in that path's run (counts set to 0
    just before, read just after; a kernel of the path with no launch
    fails the run); then one shorter request under ``torch.profiler`` for
-   each phase's device busy time, and each phase's bound.
+   each phase's device busy time, and each phase's bound;
+6. training kernels (in phase 3's call): the forward's LSE, dQ and dK/dV
+   (separate and fused) against the plain backward at the Llama training
+   shape (B2, fused 448, H32, D128, causal, one row right-padded, bf16)
+   and the DINOv2 / SigLIP shapes (bidirectional, fp32), with device and
+   eager ms, bounds and ``scaled_dot_product_attention`` forward and
+   backward through autograd as the library time;
+7. ``align7b``: the full 7B (full width and depth) in the align stage
+   (towers and Llama frozen, projector trained; B2, text 192 -> fused
+   448; full remat; bf16 compute on fp32 master params; constant LR): one
+   step's loss and projector gradient through the kernels against the
+   plain path from the same state, each kernel's launches in one step
+   (dQ = dK/dV = 32; the forward twice per layer plus the towers' 49),
+   then a few steps on one batch: step ms, tokens/s, peak memory, and
+   the step's share of the bf16 peak by ``scripts/bench_train_step.py``'s
+   accounting;
+8. ``vla-train``: full width with the decoder cut to 8 of 32 layers (a
+   cut of memory: fp32 master, gradients and AdamW moments of a 32-layer
+   decoder do not fit one card), GCOT records and synthetic frames
+   through ``GCOTDataset`` -> ``collate_train`` -> the prefetching loader
+   -> ``run_discrete_vla_training`` with AdamW over the LLM and the
+   projector, a Solver eval, and a checkpoint saved to a temporary
+   directory, restored, and held equal to the live state.
 
 The line before the last is the card's name and power limit; the one
 before it a JSON object with one entry per kernel; the last line is
@@ -61,6 +83,15 @@ PROFILE_TOKENS = 16            # the profiled request's max_new_tokens
 # output to bf16. Held relative to the largest |reference| value.
 BF16_RTOL = 2e-2
 FP32_RTOL = 1e-4               # the same inputs in fp32: summation order only
+# align7b (scripts/bench_train_step.py --config align7b): batch 2, text
+# bucket 192 -> fused 448; the last row right-padded by ALIGN_PAD tokens
+ALIGN_B, ALIGN_TEXT, ALIGN_PAD = 2, 192, 40
+ALIGN_STEPS = 3                # timed steps after one warm-up step
+# align7b parity, kernels vs plain from one state: the loss, and the
+# projector gradient relative to its largest entry
+LOSS_RTOL, GRAD_RTOL = 1e-2, 2e-2
+VLA_LAYERS = 8                 # vla-train: decoder cut to 8 of 32 layers
+VLA_B, VLA_STEPS = 4, 3
 
 
 def log(msg: str) -> None:
@@ -285,6 +316,158 @@ def kernel_phase(dev):
     return flash, int4
 
 
+def _pad_mask(dev, B, S, rpad):
+    """[B, S] slot mask with the last row right-padded by ``rpad`` slots
+    (None when nothing is padded)."""
+    if not rpad:
+        return None
+    mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    mask[-1, S - rpad:] = False
+    return mask
+
+
+def check_flash_bwd(dev, gen, name, B, L, H, D, causal, rpad, dtype):
+    """The training kernels at one shape (Lq == S == L): the forward's LSE,
+    dQ, dK/dV and the fused dK/dV + dQ partials, each against the plain
+    versions on the same inputs; then their device and eager times, the
+    plain versions' times, the bound, and the library's
+    ``scaled_dot_product_attention`` forward and backward (autograd)."""
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops.cuda_build import current_stream_ptr
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                               device=dev).to(dtype) for _ in range(4))
+    kv_mask = _pad_mask(dev, B, L, rpad)
+    kw = dict(kv_mask=kv_mask, causal=causal)
+    tol = FP32_RTOL if dtype == torch.float32 else BF16_RTOL
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    out_err, out_rel = rel_err(out, fa.flash_attention_reference(q, k, v,
+                                                                 **kw))
+    lse_err, lse_rel = rel_err(lse, fa.flash_lse_reference(q, k, **kw))
+    di = (out.float() * do.float()).sum(-1)
+    want = fa.flash_attention_bwd_reference(q, k, v, do, lse, di, **kw)
+    errs = {}
+    for fused in (False, True):
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di, fused=fused,
+                                          **kw)
+        for n, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[f"{n}{'_fused' if fused else ''}"] = rel_err(g, w)
+    bad = {n: e[1] for n, e in errs.items() if e[1] > tol}
+    if out_rel > tol or lse_rel > FP32_RTOL or bad:
+        raise AssertionError(f"flash bwd {name}: out {out_rel:.3g}, lse "
+                             f"{lse_rel:.3g} (tol {FP32_RTOL}), grads over "
+                             f"{tol}: {bad}")
+
+    def stream_args(fused):
+        (args, keep), outs = fa.bwd_launch_args(q, k, v, do, lse, di,
+                                                fused=fused, **kw)
+        return (lambda kernel: kernel.launch(*args[:-1],
+                                             current_stream_ptr(dev))), (
+            keep, outs)
+
+    sep, keep_sep = stream_args(False)
+    fus, keep_fus = stream_args(True)
+    times = {
+        "flash_fwd_lse": time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, return_lse=True, **kw)),
+        "flash_bwd_dq": time_ms(lambda: sep(fa.DQ_KERNEL)),
+        "flash_bwd_dkv": time_ms(lambda: sep(fa.DKV_KERNEL)),
+        "flash_bwd_dkv_fused": time_ms(lambda: fus(fa.DKV_KERNEL)),
+    }
+    dq_sum_ms, _ = time_ms(lambda: keep_fus[1][3].sum(dim=0).to(q.dtype))
+    plain_fwd, _ = time_ms(lambda: (fa.flash_attention_reference(q, k, v,
+                                                                  **kw),
+                                    fa.flash_lse_reference(q, k, **kw)))
+    plain_bwd, _ = time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, do, lse, di, **kw), iters=5)
+
+    dense = fa._dense_mask(L, L, kv_mask, causal, 0, dev)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib_fwd, _ = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dense))
+
+    def lib_fwd_bwd():
+        o = sdpa(qt, kt, vt, attn_mask=dense)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    lib_both, _ = time_ms(lib_fwd_bwd)
+
+    pairs = H * (dense.expand(B, 1, L, L).sum().item()
+                 if dense is not None else B * L * L)
+    el = q.element_size()
+    act = B * L * H * D * el                       # one [B, L, H, D] array
+    rows = B * L * H * 4                           # one fp32 [B, L, H]
+    mask_b = B * L if kv_mask is not None else 0
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    n_kv_tiles = -(-L // fa.BWD_KV_TILE)
+    work = {   # (bytes: each input read once, each output written once; ops)
+        "flash_fwd_lse": (4 * act + rows + mask_b, 4.0 * D * pairs),
+        "flash_bwd_dq": (5 * act + 2 * rows + mask_b, 6.0 * D * pairs),
+        "flash_bwd_dkv": (6 * act + 2 * rows + mask_b, 8.0 * D * pairs),
+        "flash_bwd_dkv_fused": (6 * act + 2 * rows + mask_b
+                                + n_kv_tiles * B * L * H * D * 4,
+                                10.0 * D * pairs),
+    }
+    errs_out = {"flash_fwd_lse": (out_err, out_rel),
+                "flash_bwd_dq": errs["dq"],
+                "flash_bwd_dkv": max(errs["dk"], errs["dv"],
+                                     key=lambda e: e[1]),
+                "flash_bwd_dkv_fused": max(errs["dq_fused"],
+                                           errs["dk_fused"],
+                                           errs["dv_fused"],
+                                           key=lambda e: e[1])}
+    plain = {"flash_fwd_lse": plain_fwd, "flash_bwd_dq": plain_bwd,
+             "flash_bwd_dkv": plain_bwd, "flash_bwd_dkv_fused": plain_bwd}
+    library = {"flash_fwd_lse": lib_fwd, "flash_bwd_dq": lib_both - lib_fwd,
+               "flash_bwd_dkv": lib_both - lib_fwd,
+               "flash_bwd_dkv_fused": lib_both - lib_fwd}
+    recs = []
+    for kname, (ms, eager) in times.items():
+        bms, by = bound_ms(*work[kname], peak)
+        recs.append({"name": kname, "shape": name, "dtype": str(dtype)[6:],
+                     "max_abs_err": errs_out[kname][0],
+                     "rel_err": errs_out[kname][1], "ms": ms,
+                     "eager_ms": eager, "plain_ms": plain[kname],
+                     "library_ms": library[kname], "bound_ms": bms,
+                     "bound_by": by})
+    recs[0]["lse_max_abs_err"] = lse_err
+    recs[-1]["dq_partial_sum_ms"] = dq_sum_ms
+    recs[-1]["library_note"] = recs[1]["library_note"] = recs[2][
+        "library_note"] = "sdpa backward (dq, dk and dv together)"
+    return recs
+
+
+def training_kernel_phase(dev):
+    from emmax_torch.models.vlm import emma_x_vlm_config
+
+    cfg = emma_x_vlm_config()
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    (_, dino), (_, sig) = cfg.vision
+    llm = cfg.llm
+    F = cfg.num_patches + ALIGN_TEXT
+    recs = (check_flash_bwd(dev, gen, f"llama train B{ALIGN_B} L{F} "
+                            f"H{llm.n_heads} D{llm.head_dim} causal "
+                            f"rpad{ALIGN_PAD}", ALIGN_B, F, llm.n_heads,
+                            llm.head_dim, True, ALIGN_PAD, torch.bfloat16)
+            + check_flash_bwd(dev, gen, f"dino B{ALIGN_B} L"
+                              f"{dino.num_patches + dino.num_prefix} "
+                              f"H{dino.n_heads} D{dino.head_dim}", ALIGN_B,
+                              dino.num_patches + dino.num_prefix,
+                              dino.n_heads, dino.head_dim, False, 0,
+                              torch.float32)
+            + check_flash_bwd(dev, gen, f"siglip B{ALIGN_B} "
+                              f"L{sig.num_patches} H{sig.n_heads} "
+                              f"D{sig.head_dim}", ALIGN_B, sig.num_patches,
+                              sig.n_heads, sig.head_dim, False, 0,
+                              torch.float32))
+    for r in recs:
+        log("kernel " + json.dumps(r))
+    return recs
+
+
 # --------------------------------------------------------------- the path --
 
 def tiny_parity(dev):
@@ -402,6 +585,8 @@ def path_bounds(vla, prefill_tokens: int, valid_tokens: float) -> dict:
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
     return [tree]
 
 
@@ -479,11 +664,311 @@ def run_path(dev, quantize, kernels):
     return summary
 
 
+# ---------------------------------------------------------------- training --
+
+def _count(tree) -> int:
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def align_batch(dev, pad_id: int):
+    """B2 x 192 tokens (BOS first, the first third unsupervised, the last
+    row right-padded) and 256x256 uint8 frames, from a seeded numpy
+    generator (scripts/bench_train_step.py's batch, with padding)."""
+    rng = np.random.default_rng(0)
+    B, T = ALIGN_B, ALIGN_TEXT
+    ids = rng.integers(3, 30000, size=(B, T)).astype(np.int32)
+    ids[:, 0] = 1
+    labels = ids.copy()
+    labels[:, :T // 3] = -100
+    mask = np.ones((B, T), bool)
+    ids[-1, T - ALIGN_PAD:] = pad_id
+    labels[-1, T - ALIGN_PAD:] = -100
+    mask[-1, T - ALIGN_PAD:] = False
+    images = rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8)
+    return {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("input_ids", ids), ("labels", labels), ("attention_mask", mask),
+        ("images", images))}
+
+
+def profile_step(run, step_ms: float) -> dict:
+    """One more train step under ``torch.profiler``: the kernels' summed
+    device time, its share of the unprofiled step time, and the kernels
+    that took the most of it. With no device events: not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                    + e.time_range.elapsed_us() / 1e3)
+    if not by_name:
+        return {"device": "not measured"}
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": busy, "busy_share": busy / step_ms,
+            "top_kernels_ms": top}
+
+
+def align7b_phase(dev, kernels):
+    """Full 7B, align stage: kernel-vs-plain step parity, launch counts per
+    step, then timed steps on one batch."""
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import (make_grad_fn,
+                                                  make_train_step)
+
+    cfg = emma_x_vlm_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    params = init_vlm_params(gen, cfg, torch.float32, dev)
+    tx, _ = make_optimizer(params, learning_rate=2e-5, weight_decay=0.01,
+                           max_grad_norm=1.0, lr_scheduler_type="constant",
+                           total_steps=100, stage="align")
+    state = create_train_state(params, tx)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_llm, n_vis, n_proj = (_count(params[k]) for k in
+                            ("llm", "vision", "projector"))
+    batch = align_batch(dev, 32000)
+    common = dict(remat=True, stop_vision_gradient=True,
+                  compute_dtype=torch.bfloat16,
+                  transforms=get_image_transforms("dinosiglip-vit-so-224px",
+                                                  "resize-naive"),
+                  freeze_mask=trainable_mask(params, "align"),
+                  action_vocab_size=32000)
+
+    # One step's loss and projector gradient from one state, through the
+    # kernels and through the plain path, in fp32 (held at LOSS_RTOL and
+    # GRAD_RTOL of the largest entry) and in bf16 (each held against the
+    # fp32 plain run: the kernels no farther from it than twice the plain
+    # path's distance, or GRAD_RTOL; the two bf16 paths round differently
+    # through 32 layers, so they are not held to each other).
+    results = {}
+    for impl, dtype in (("torch", torch.float32), ("cuda", torch.float32),
+                        ("cuda", torch.bfloat16), ("torch", torch.bfloat16)):
+        loss, _, grads = make_grad_fn(
+            cfg, attn_impl=impl, **{**common, "compute_dtype": dtype})(
+                params, batch)
+        results[impl, dtype] = (loss.item(), [g.float() for g in _leaves(
+            grads["projector"])])
+        del grads
+    ref_loss, ref_g = results["torch", torch.float32]
+    g_scale = max(g.abs().max().item() for g in ref_g)
+
+    def dist(key):
+        loss, g = results[key]
+        return abs(loss - ref_loss) / abs(ref_loss), max(
+            (a - b).abs().max().item() for a, b in zip(g, ref_g)) / g_scale
+
+    parity = {f"{impl}_{str(dt)[6:]}": dist((impl, dt))
+              for impl, dt in results}
+    del results, ref_g
+    k32, kb, pb = (parity["cuda_float32"], parity["cuda_bfloat16"],
+                   parity["torch_bfloat16"])
+    if not (np.isfinite(ref_loss) and k32[0] <= LOSS_RTOL
+            and k32[1] <= GRAD_RTOL and kb[0] <= LOSS_RTOL
+            and kb[1] <= max(2 * pb[1], GRAD_RTOL)):
+        raise AssertionError(f"align7b parity (loss rel, grad err / max) "
+                             f"against the fp32 plain step: {parity}")
+    log(f"align7b parity against the fp32 plain step (loss {ref_loss:.6f}, "
+        f"projector grad max {g_scale:.4g}): {json.dumps(parity)}")
+
+    step = make_train_step(cfg, tx, attn_impl="cuda", **common)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    state, m = step(state, batch)                 # warm-up; counts one step
+    torch.cuda.synchronize(dev)
+    launches = {k.name: k.launches for k in kernels}
+    L = cfg.llm.n_layers
+    tower_blocks = sum(v.depth - 1 for _, v in cfg.vision)
+    expected = {"flash_fwd": 2 * L + tower_blocks, "flash_bwd_dq": L,
+                "flash_bwd_dkv": L, "int4_matmul": 0}
+    if launches != expected:
+        raise AssertionError(f"align7b launches per step {launches} != "
+                             f"{expected}")
+    times, losses = [], []
+    for _ in range(ALIGN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        vals = {k: v.item() for k, v in m.items()}   # ends in a sync
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(vals["loss"])
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"align7b: non-finite metrics {vals}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = float(np.median(times)) / 1e3
+    profile = profile_step(lambda: step(state, batch)[1]["loss"].item(),
+                           step_s * 1e3)
+    log("align7b profile " + json.dumps(profile))
+    B, P = ALIGN_B, cfg.num_patches
+    F = ALIGN_TEXT + P
+    tok_llm, tok_vis = B * F, B * (P + 8)
+    # scripts/bench_train_step.py:377-400 (align: no trainable LLM, no
+    # tower backward; full remat re-runs the forward)
+    fwd = 2 * (n_llm * tok_llm + n_vis * tok_vis + n_proj * B * P)
+    bwd = 2 * n_llm * tok_llm + 4 * n_proj * B * P
+    attn = 4 * B * F * F * cfg.llm.dim
+    flops_6nd = 6 * (n_llm * tok_llm + n_vis * tok_vis + n_proj * B * P)
+    flops_hw = fwd + bwd + fwd + 3 * attn
+    out = {"phase": "align7b", "params_b": (n_llm + n_vis + n_proj) / 1e9,
+           "batch": B, "text_len": ALIGN_TEXT, "fused_seq": F,
+           "init_s": init_s, "launches_per_step": launches,
+           "loss_fp32_plain": ref_loss, "proj_grad_max": g_scale,
+           "parity": parity,
+           "step_ms": times, "step_ms_median": step_s * 1e3,
+           "tokens_per_s": tok_llm / step_s, "peak_gb": peak_gb,
+           "losses": losses, "profile": profile,
+           "bound_ms": flops_hw / BF16_FLOPS_PER_S * 1e3,
+           "mfu_6nd": flops_6nd / step_s / BF16_FLOPS_PER_S,
+           "mfu_hw": flops_hw / step_s / BF16_FLOPS_PER_S}
+    log("align7b " + json.dumps(out))
+    del state, step, params, tx, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vla_train_phase(dev, kernels):
+    """Emma-X's vla-train stage at full width, decoder cut to
+    ``VLA_LAYERS``, through the GCOT data path and the discrete training
+    loop, then a checkpoint round trip."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from emmax_torch.data.collators import BatchLoader, collate_train
+    from emmax_torch.data.gcot import (GCOTDataset, SyntheticFrameSource,
+                                       make_dummy_gcot_items)
+    from emmax_torch.data.prefetch import PrefetchingLoader
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.training.checkpointing import CheckpointManager
+    from emmax_torch.training.loop import (LoopConfig, make_eval_fn,
+                                           run_discrete_vla_training)
+    from emmax_torch.training.metrics import (VLADiscreteMetrics,
+                                              build_trackers)
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  stage_from_flags,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import make_train_step
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+    from emmax_torch.vla.solver import Solver
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    base = emma_x_vlm_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, n_layers=VLA_LAYERS))
+    tokenizer = load_tokenizer(None)
+    at = ActionTokenizer(tokenizer)
+    dataset = GCOTDataset(make_dummy_gcot_items(4 * VLA_B), at, tokenizer,
+                          SyntheticFrameSource(256),
+                          data_mix="movement_policy", mask_inst=True)
+    loader = BatchLoader(dataset, VLA_B, lambda s: collate_train(
+        s, tokenizer.pad_id, max_length=cfg.llm.max_seq_len), seed=7)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    params = init_vlm_params(gen, cfg, torch.float32, dev)
+    stage = stage_from_flags(True, False, False)
+    tx, schedule = make_optimizer(params, learning_rate=2e-5,
+                                  weight_decay=0.0, max_grad_norm=1.0,
+                                  lr_scheduler_type="constant",
+                                  total_steps=VLA_STEPS, stage=stage)
+    state = create_train_state(params, tx)
+    transforms = get_image_transforms("dinosiglip-vit-so-224px",
+                                      "resize-naive")
+    step_fn = make_train_step(
+        cfg, tx, attn_impl="cuda", remat=True, compute_dtype=torch.bfloat16,
+        transforms=transforms, stop_vision_gradient=True,
+        freeze_mask=trainable_mask(params, stage),
+        action_vocab_size=tokenizer.vocab_size)
+    eval_fn = make_eval_fn(cfg, transforms=transforms, attn_impl="cuda",
+                           compute_dtype=torch.bfloat16)
+    n_train = sum(t.numel() for m, t in zip(
+        _leaves(trainable_mask(params, stage)), _leaves(params)) if m)
+    tmp = tempfile.mkdtemp(prefix="emmax_vla_train_")
+    try:
+        ckpt = CheckpointManager(tmp)
+        metrics = VLADiscreteMetrics(build_trackers(["jsonl"], "vla-train",
+                                                    tmp))
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state = run_discrete_vla_training(
+            vlm_cfg=cfg, state=state, train_step=step_fn,
+            loader=PrefetchingLoader(loader, dev), metrics=metrics,
+            loop_cfg=LoopConfig(epochs=1, max_steps=VLA_STEPS,
+                                eval_every=VLA_STEPS, save_every=1000,
+                                log_every=1),
+            device=dev, tokenizer=tokenizer, solver=Solver(at),
+            eval_fn=eval_fn, ckpt_manager=ckpt, lr_fn=schedule)
+        torch.cuda.synchronize(dev)
+        loop_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = list(metrics.deques["loss"])
+        if state.step != VLA_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"vla-train: step {state.step}, losses "
+                                 f"{losses}")
+        if "solver_action_accuracy" not in metrics.deques:
+            raise AssertionError("vla-train: no Solver eval ran")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if launches[name] == 0:
+                raise AssertionError(f"vla-train launched no {name}")
+        path = ckpt.latest()
+        ckpt_gb = sum(f.stat().st_size for f in path.iterdir()) / 1e9
+        t0 = time.perf_counter()
+        restored = ckpt.restore(path, device="cpu")
+        restore_s = time.perf_counter() - t0
+        same = restored.step == state.step and (
+            restored.opt_state["count"] == state.opt_state["count"])
+        for a, b in zip(_leaves(state.params), _leaves(restored.params)):
+            same = same and torch.equal(a.cpu(), b)
+        for key in ("mu", "nu"):
+            for a, b in zip(state.opt_state[key], restored.opt_state[key]):
+                same = same and ((a is None and b is None)
+                                 or torch.equal(a.cpu(), b))
+        if not same:
+            raise AssertionError(f"vla-train: checkpoint {path.name} does "
+                                 f"not restore the saved state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "vla-train", "decoder_layers": VLA_LAYERS,
+           "params_b": _count(params) / 1e9, "trainable_b": n_train / 1e9,
+           "batch": VLA_B, "steps": VLA_STEPS, "losses": losses,
+           "step_times_s": list(metrics.step_times), "loop_s": loop_s,
+           "launches": launches, "peak_gb": peak_gb,
+           "checkpoint": path.name, "checkpoint_gb": ckpt_gb,
+           "restore_s": restore_s, "restored_equal": True,
+           "solver_action_accuracy":
+               list(metrics.deques["solver_action_accuracy"])}
+    log("vla-train " + json.dumps(out))
+    del state, restored, params, tx, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from emmax_torch.ops import flash_attention, int4_matmul
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops import int4_matmul
     from emmax_torch.ops.cuda_build import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 matmuls in fp32
@@ -492,13 +977,14 @@ def main(argv) -> int:
     smi = smi_line()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    kernels = [flash_attention.KERNEL, int4_matmul.KERNEL]
+    kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, int4_matmul.KERNEL]
     t0 = time.perf_counter()
     secs = build_all(kernels)
     log(f"built {secs} in {time.perf_counter() - t0:.1f} s (parallel)")
-    for k in kernels:
+    for k in (fa.KERNEL, fa.DQ_KERNEL, int4_matmul.KERNEL):
         log(f"--- nvcc {k.source}\n{k.build_log.strip()}")
     flash, int4 = kernel_phase(dev)
+    train_kernels = training_kernel_phase(dev)
     if "--kernels-only" in argv:
         return 0
     tiny_parity(dev)
@@ -506,25 +992,48 @@ def main(argv) -> int:
     if bf16["launches"]["flash_fwd"] == 0:
         raise AssertionError("bf16 path launched no flash_fwd kernel")
     q4 = run_path(dev, "int4", kernels)
-    for name, n in q4["launches"].items():
-        if n == 0:
+    for name in ("flash_fwd", "int4_matmul"):
+        if q4["launches"][name] == 0:
             raise AssertionError(f"int4 path launched no {name} kernel")
-    flash_main = flash[-1]                   # the Llama prefill shape
-    int4_main = int4[1]                      # decode M=1, w_gate/w_up
-    entries = []
-    for rec, kernel, replaces in (
-            (flash_main, flash_attention.KERNEL,
-             "emmax_tpu/ops/flash_attention.py:156"),
-            (int4_main, int4_matmul.KERNEL,
-             "emmax_tpu/ops/int4_matmul.py:374")):
-        entries.append({
-            "name": rec["name"], "route": "cuda",
-            "source": f"emmax_torch/csrc/{kernel.source}",
-            "replaces": replaces, "launches": q4["launches"][kernel.name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": rec["shape"]})
+    align = align7b_phase(dev, kernels)
+    vla = vla_train_phase(dev, kernels)
+    log("training " + json.dumps({"align7b": align, "vla_train": vla}))
+
+    def entry(rec, kernel, replaces, launches, **extra):
+        return {"name": kernel.name, "route": "cuda",
+                "source": f"emmax_torch/csrc/{kernel.source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "shape": rec["shape"], **extra}
+
+    by_name = {r["name"]: r for r in train_kernels[:4]}   # Llama training
+    step = align["launches_per_step"]
+    prefill = flash[-1]                       # the Llama prefill shape
+    entries = [
+        entry(by_name["flash_fwd_lse"], fa.KERNEL,
+              "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
+              launches_path="align7b train step",
+              serving={"shape": prefill["shape"], "ms": prefill["ms"],
+                       "plain_ms": prefill["plain_ms"],
+                       "library_ms": prefill["library_ms"],
+                       "bound_ms": prefill["bound_ms"],
+                       "launches_int4_path": q4["launches"]["flash_fwd"]}),
+        entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
+              "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
+              launches_path="align7b train step"),
+        entry(by_name["flash_bwd_dkv"], fa.DKV_KERNEL,
+              "emmax_tpu/ops/flash_attention.py:445",
+              step["flash_bwd_dkv"], launches_path="align7b train step",
+              fused={k: by_name["flash_bwd_dkv_fused"][k] for k in
+                     ("ms", "max_abs_err", "bound_ms", "bound_by",
+                      "dq_partial_sum_ms")}),
+        entry(int4[1], int4_matmul.KERNEL,
+              "emmax_tpu/ops/int4_matmul.py:404",
+              q4["launches"]["int4_matmul"],
+              launches_path="int4 serving requests"),
+    ]
     print(json.dumps({"kernels": entries}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

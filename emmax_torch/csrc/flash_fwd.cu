@@ -12,6 +12,11 @@
 // heads as Q (a grouped-query caller repeats them first, as for the TPU
 // kernel). Query rows that see no valid key (the pad rows of a left-padded
 // prompt) store exact zeros, as the TPU kernel's `l == 0` guard does.
+// With an `lse` pointer (the training forward, `_flash_vjp_fwd`) it also
+// stores each row's log-sum-exp m + log(l) as fp32 [B, Lq, H]; a row with
+// no valid key stores m (the masking sentinel), as the TPU kernel's
+// `save_lse` does, so the backward's exp(s - lse) is then masked to 0.
+// Serving passes a null pointer and stores no LSE.
 //
 // What bounds it on the H100: at the main path's shapes (ViT L=256/261,
 // Llama prefill Lq~450 into S=cache_len~512) the work is ~4*Lq*S*D
@@ -51,11 +56,12 @@ constexpr int smem_bytes() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ kv_mask, T* __restrict__ o, int Lq, int S,
-    int D, long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl, long long k_sh, long long v_sb,
-    long long v_sl, long long v_sh, long long o_sb, long long o_sl,
-    long long o_sh, long long m_sb, int causal, int q_offset,
-    float sm_scale) {
+    const uint8_t* __restrict__ kv_mask, T* __restrict__ o,
+    float* __restrict__ lse, int H, int Lq, int S, int D, long long q_sb,
+    long long q_sl, long long q_sh, long long k_sb, long long k_sl,
+    long long k_sh, long long v_sb, long long v_sl, long long v_sh,
+    long long o_sb, long long o_sl, long long o_sh, long long m_sb,
+    int causal, int q_offset, float sm_scale) {
   constexpr int QS = DP + 1;  // padded row stride of the Q and K tiles
   constexpr int PS = BK + 1;  // padded row stride of the P tile
   constexpr int NC = DP / 8;  // output columns per thread
@@ -192,6 +198,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int row = q0 + rg * 4 + i;
     if (row >= Lq) continue;
     const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;  // zeros if no key
+    if (lse && cg == 0)
+      lse[((long long)b * Lq + row) * H + h] =
+          m_i[i] + logf(l_i[i] > 0.f ? l_i[i] : 1.f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = cg + 8 * c;
@@ -202,7 +211,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* o, int B, int H,
+                   const uint8_t* mask, void* o, float* lse, int B, int H,
                    int Lq, int S, int D, const long long* st, int causal,
                    int q_offset, float sm_scale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP>();
@@ -213,7 +222,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), Lq, S, D,
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Lq, S, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], st[12], causal, q_offset, sm_scale);
   return cudaGetLastError();
@@ -221,17 +230,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const uint8_t* mask, void* o, int B, int H,
-                       int Lq, int S, int D, const long long* st, int causal,
+                       const uint8_t* mask, void* o, float* lse, int B,
+                       int H, int Lq, int S, int D, const long long* st,
+                       int causal,
                        int q_offset, float sm_scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, mask, o, B, H, Lq, S, D, st, causal,
+    return launch<T, 64>(q, k, v, mask, o, lse, B, H, Lq, S, D, st, causal,
                          q_offset, sm_scale, stream);
   if (D <= 72)
-    return launch<T, 72>(q, k, v, mask, o, B, H, Lq, S, D, st, causal,
+    return launch<T, 72>(q, k, v, mask, o, lse, B, H, Lq, S, D, st, causal,
                          q_offset, sm_scale, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, mask, o, B, H, Lq, S, D, st, causal,
+    return launch<T, 128>(q, k, v, mask, o, lse, B, H, Lq, S, D, st, causal,
                           q_offset, sm_scale, stream);
   return cudaErrorInvalidValue;
 }
@@ -239,10 +249,11 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // strides[13]: q (b, l, h), k (b, l, h), v (b, l, h), o (b, l, h), mask (b);
-// all in elements. Returns the cudaError_t of the launch (0 = success).
+// all in elements. `lse` is null (serving) or fp32 [B, Lq, H] contiguous.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int emmax_flash_fwd(const void* q, const void* k, const void* v,
-                               const void* kv_mask, void* o, int B, int H,
-                               int Lq, int S, int D,
+                               const void* kv_mask, void* o, void* lse,
+                               int B, int H, int Lq, int S, int D,
                                const long long* strides, int causal,
                                int q_offset, float sm_scale, int dtype,
                                void* stream) {
@@ -250,11 +261,12 @@ extern "C" int emmax_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == emmax::kBFloat16)
-    err = dispatch_d<__nv_bfloat16>(q, k, v, mask, o, B, H, Lq, S, D,
+    err = dispatch_d<__nv_bfloat16>(q, k, v, mask, o,
+                                    static_cast<float*>(lse), B, H, Lq, S, D,
                                     strides, causal, q_offset, sm_scale, s);
   else if (dtype == emmax::kFloat32)
-    err = dispatch_d<float>(q, k, v, mask, o, B, H, Lq, S, D, strides,
-                            causal, q_offset, sm_scale, s);
+    err = dispatch_d<float>(q, k, v, mask, o, static_cast<float*>(lse), B, H,
+                            Lq, S, D, strides, causal, q_offset, sm_scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -12,16 +12,23 @@ fp32 cos/sin, SwiGLU MLP, fp32 attention softmax.
 The KV cache is preallocated (``init_kv_cache``) and updated in place: a
 cached call writes its K/V at slots ``[len, len + L)`` of each layer,
 reads the layer's whole cache back as a view, and advances ``len``.
+
+The uncached path is the training path: each layer may be rematerialized
+(``remat``), and the loss heads (``cross_entropy_loss``, the
+memory-lean ``chunked_ce_loss_and_preds``) are here as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from emmax_torch.models.tree import ParamTree
 from emmax_torch.ops.attention import multi_head_attention
@@ -29,6 +36,8 @@ from emmax_torch.ops.norms import rms_norm
 from emmax_torch.ops.rope import apply_rope, rope_cos_sin
 
 Params = Dict[str, Any]
+IGNORE_INDEX = -100
+Remat = Union[bool, str]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +137,51 @@ def layer_slice(layers: Params, i: int) -> Params:
     return out
 
 
+def layer_list(layers: Params, n_layers: int) -> List[Params]:
+    """Every layer's params. Dense stacked leaves are unbound once
+    (``torch.unbind``), so under autograd the backward stacks the layers'
+    gradients once; indexing ``w[i]`` per layer would instead add a zero
+    tensor the size of the whole stack for every layer."""
+    dense = {k: torch.unbind(v) for k, v in layers.items()
+             if isinstance(v, torch.Tensor)}
+    rest = {k: v for k, v in layers.items() if k not in dense}
+    out = []
+    for i in range(n_layers):
+        p = layer_slice(rest, i)
+        p.update({k: v[i] for k, v in dense.items()})
+        out.append(p)
+    return out
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the matmul
+    outputs, recompute the rest (JAX's ``dots_saveable``)."""
+    if op in _MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: Remat, fn, *args):
+    """``fn(*args)`` under the remat policy: False/"none" stores every
+    activation; True/"full" keeps only the inputs and re-runs ``fn`` in
+    the backward (non-reentrant ``torch.utils.checkpoint``); "dots" keeps
+    the matmul outputs and recomputes the elementwise ops."""
+    if not remat or remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat is True or remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_matmuls))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _mlp(h: torch.Tensor, p: Params, cfg: LlamaConfig) -> torch.Tensor:
     x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
     return h + mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]),
@@ -176,15 +230,23 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                   positions: Optional[torch.Tensor] = None,
                   kv_cache: Optional[Params] = None,
                   attn_impl: str = "auto",
-                  logits_dtype: torch.dtype = torch.float32
+                  remat: Remat = False,
+                  logits_dtype: torch.dtype = torch.float32,
+                  return_hidden: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (logits [B, L, V], the kv_cache or None).
 
     Without a cache: causal self-attention over the L tokens (+ the [B, L]
-    padding mask). With a cache: the L tokens are written at slots
-    ``[len, len + L)`` in place and attend to every valid slot up to their
-    own; the cache's mask and ``len`` are updated and the same dict is
-    returned.
+    padding mask), each layer under ``remat`` (:func:`remat_call`). With a
+    cache: the L tokens are written at slots ``[len, len + L)`` in place
+    and attend to every valid slot up to their own; the cache's mask and
+    ``len`` are updated and the same dict is returned.
+
+    ``return_hidden``: the final-normed hidden states [B, L, D] instead of
+    logits, for ``chunked_ce_loss_and_preds``. The JAX package's
+    ``scan_weight_barrier`` is an XLA scheduling fence inside its layer
+    scan; eager PyTorch has no such rewrite to fence, so nothing here
+    stands for it.
     """
     B, L, _ = inputs_embeds.shape
     if positions is None:
@@ -201,9 +263,9 @@ def llama_forward(params: Params, cfg: LlamaConfig,
 
     h = inputs_embeds
     if kv_cache is None:
-        for i in range(cfg.n_layers):
-            h = _layer(h, layer_slice(layers, i), cos, sin, mask, cfg,
-                       attn_impl)
+        for p in layer_list(layers, cfg.n_layers):
+            h = remat_call(remat, _layer, h, p, cos, sin, mask, cfg,
+                           attn_impl)
     else:
         t0 = kv_cache["len"]
         if t0 + L > kv_cache["k"].shape[2]:
@@ -217,6 +279,8 @@ def llama_forward(params: Params, cfg: LlamaConfig,
         kv_cache["len"] = t0 + L
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return h, kv_cache
     logits = mm(h, params["lm_head"]).to(logits_dtype)
     return logits, kv_cache
 
@@ -227,6 +291,58 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     JAX package's clamped gather does; such slots are masked."""
     table = params["embed"]
     return table[input_ids.clamp(max=table.shape[0] - 1)]
+
+
+def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
+                              *, chunk: int = 128):
+    """Sequence-chunked shifted CE and greedy preds from the final hidden
+    states: the same fp32 log-softmax per position and masked mean as
+    ``mm(h, lm_head)`` + :func:`cross_entropy_loss`, but each ``chunk`` of
+    positions is checkpointed, so the full fp32 [B, L, vocab] logits and
+    their gradient never exist at once (the backward re-runs one chunk's
+    lm_head matmul at a time). Returns (loss, preds [B, L])."""
+    B, L, _ = h.shape
+    shifted = torch.cat([labels[:, 1:], torch.full(
+        (B, 1), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)],
+        dim=1)
+    pad = (-L) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        shifted = F.pad(shifted, (0, pad), value=IGNORE_INDEX)
+
+    def one_block(hb, lb):
+        logits = mm(hb, lm_head).float()
+        return (*_nll_sum(logits, lb),
+                logits.argmax(dim=-1).to(torch.int32))
+
+    loss_sum = h.new_zeros((), dtype=torch.float32)
+    count = 0
+    preds = []
+    for c in range(0, L + pad, chunk):
+        ls, cnt, pr = remat_call("full", one_block, h[:, c:c + chunk],
+                                 shifted[:, c:c + chunk])
+        loss_sum = loss_sum + ls
+        count = count + cnt
+        preds.append(pr)
+    preds = torch.cat(preds, dim=1)[:, :L]
+    return loss_sum / torch.clamp(count, min=1), preds
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor):
+    """(sum of -log p(target) over the positions whose target is not
+    IGNORE_INDEX, their count), from fp32 logits."""
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, 0).long()
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    return (-torch.where(valid, ll, 0.0)).sum(), valid.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Shifted next-token CE with IGNORE_INDEX masking, in fp32 (the JAX
+    package's, and torch ``CrossEntropyLoss(ignore_index=-100)``)."""
+    total, count = _nll_sum(logits[:, :-1].float(), labels[:, 1:])
+    return total / torch.clamp(count, min=1)
 
 
 class Llama(nn.Module):

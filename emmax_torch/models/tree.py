@@ -5,7 +5,9 @@ per-layer tensors stacked on a leading ``[L, ...]`` axis, quantized
 weights as ``{"q8"|"q4", "scale"}`` dicts) so that the weight bridge is a
 rename. The modules hold that tree as buffers, which ``state_dict``,
 ``.to`` and ``named_buffers`` see, and hand it back as the plain dict the
-functional forward passes take.
+functional forward passes take. ``map_with_path``, ``leaves_with_path``
+and ``tree_map`` walk such trees (the trainer's masks, gradients and
+optimizer state).
 """
 
 from __future__ import annotations
@@ -44,3 +46,34 @@ class ParamTree(nn.Module):
         if self._kind == "list":
             return vals
         return dict(zip(self._keys, vals))
+
+
+def map_with_path(fn, tree: Tree, path: str = ""):
+    """``fn(path, leaf)`` over a nested dict/list tree, rebuilt with the
+    same structure; paths join keys and list indices with "/"
+    ("projector/layers/0/kernel"), as the JAX package names leaves."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def leaves_with_path(tree: Tree, path: str = ""):
+    """[(path, leaf)] in the order ``map_with_path`` visits them."""
+    out = []
+    map_with_path(lambda p, leaf: out.append((p, leaf)), tree, path)
+    return out
+
+
+def tree_map(fn, tree: Tree, *rest: Tree):
+    """``fn(leaf, *leaves)`` over trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)

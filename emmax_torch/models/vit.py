@@ -171,7 +171,9 @@ def vit_forward(params: Params, cfg: ViTConfig, images: torch.Tensor, *,
     if num_blocks is None:
         num_blocks = cfg.depth - 1
     h = _embed(params, cfg, images)
-    blocks = params["blocks"]
+    # unbound once: under autograd the stack's gradient is built once
+    # (see ``llama.layer_list``)
+    blocks = {k: torch.unbind(v) for k, v in params["blocks"].items()}
     for i in range(num_blocks):
         h = _block(h, {k: v[i] for k, v in blocks.items()}, cfg, attn_impl)
     if final_norm:

@@ -72,17 +72,20 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Unified attention entry point.
 
     ``impl``: "torch" (the plain path), "cuda" (``flash_attention``: the
-    kernel for CUDA tensors, its plain version for CPU tensors) or "auto".
+    kernels for CUDA tensors, their plain versions for CPU tensors),
+    "cuda_fused" (the same forward; the backward folds dQ into the dK/dV
+    kernel as fp32 partials, the counterpart of "pallas_fused") or "auto".
     """
     impl = resolve_attn_impl(impl, q)
     if impl == "torch":
         return xla_attention(q, k, v, kv_mask=kv_mask, causal=causal,
                              q_offset=q_offset)
-    if impl == "cuda":
+    if impl in ("cuda", "cuda_fused"):
         from emmax_torch.ops.flash_attention import flash_attention
 
         n_rep = q.shape[2] // k.shape[2]
         return flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                                kv_mask=kv_mask, causal=causal,
-                               q_offset=q_offset)
+                               q_offset=q_offset,
+                               fused_bwd=impl == "cuda_fused")
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -8,6 +8,8 @@ loaded with ``ctypes``. Nothing is compiled or loaded at import time:
 the CPU tests import every module on a machine with no ``nvcc``.
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
+Several entry points of one source (``flash_bwd.cu``'s dQ and dK/dV
+kernels) share its library and keep separate launch counts.
 """
 
 from __future__ import annotations
@@ -55,11 +57,14 @@ class CudaKernel:
 
     ``launches`` counts the wrapper's kernel launches; a run resets it to 0
     and reads it afterwards to show that a path went through the kernel.
+    ``name`` defaults to the source's stem.
     """
 
     def __init__(self, source: str, symbol: str,
-                 argtypes: Sequence[type]) -> None:
+                 argtypes: Sequence[type], name: Optional[str] = None
+                 ) -> None:
         self.source = source
+        self._name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -69,14 +74,15 @@ class CudaKernel:
 
     @property
     def name(self) -> str:
-        return Path(self.source).stem
+        return self._name or Path(self.source).stem
 
     def library_path(self) -> Path:
         h = hashlib.sha1()
         for f in sorted(CSRC.glob("*.cuh")) + [CSRC / self.source]:
             h.update(f.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+        stem = Path(self.source).stem
+        return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> Optional[tuple]:
         """Start nvcc unless the library is already built; returns
@@ -128,15 +134,18 @@ class CudaKernel:
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
-    """Compile every kernel in parallel (one nvcc each); returns seconds per
-    kernel (0.0 when the library was already built)."""
+    """Compile every source in parallel (one nvcc each); returns seconds per
+    source (0.0 when the library was already built)."""
     kernels = list(kernels)
-    procs = [k.start_build() for k in kernels]
-    for k, p in zip(kernels, procs):
+    first = {}
+    for k in kernels:
+        first.setdefault(k.source, k)
+    procs = [k.start_build() for k in first.values()]
+    for k, p in zip(first.values(), procs):
         k.finish_build(p)
     for k in kernels:
         k.fn()
-    return {k.name: k.build_seconds for k in kernels}
+    return {src: k.build_seconds for src, k in first.items()}
 
 
 def current_stream_ptr(device: torch.device) -> ctypes.c_void_p:

@@ -157,7 +157,7 @@ class ServingEngine:
             patch_embeds = self.model(pixel_values, attn_impl=self.attn_impl)
         mark(1)
         with record_function("emmax_torch.prefill"):
-            embeds, fmask, positions = fuse_multimodal(
+            embeds, fmask, _, positions = fuse_multimodal(
                 patch_embeds, embed_tokens(llm, ids), mask)
             logits, cache = llm_apply(llm, cfg.llm, embeds, mask=fmask,
                                       positions=positions, kv_cache=cache,

@@ -8,7 +8,8 @@ This file imports no JAX, so it runs where only PyTorch is installed
 
 Tolerances, relative to the largest |reference| value: 1e-4 in fp32 (the
 same inputs, sums in another order), 2e-2 in bf16 (the kernels keep fp32
-where the plain versions round to bf16).
+where the plain versions round to bf16). The LSE is held at 1e-5
+absolute (fp32 in both).
 """
 
 import numpy as np
@@ -65,6 +66,68 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
     if dense is not None:
         dead = ~dense.any(dim=-1)[:, 0]                 # [B, Lq]
         assert not got[dead].any()                      # exact zeros
+
+
+@pytest.mark.parametrize("case", FLASH, ids=[str(c) for c in FLASH])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain(dev, case, dtype):
+    """dQ, dK/dV (separate and fused) and the forward's LSE against the
+    plain versions, on strided q/k/v as the model gives them."""
+    from emmax_torch.ops import flash_attention as fa
+
+    B, Lq, S, H, D, causal, q_offset, pad = case
+    g = torch.Generator(dev).manual_seed(2)
+    qkv = torch.randn(B, Lq, 3 * H * D, device=dev, generator=g).to(dtype)
+    q = qkv[..., :H * D].reshape(B, Lq, H, D)
+    k = qkv[..., H * D:2 * H * D].reshape(B, Lq, H, D) if S == Lq else \
+        torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+    v = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+    do = torch.randn(B, Lq, H, D, device=dev, generator=g).to(dtype)
+    mask = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    mask[:, pad:] = True
+    if B > 1:
+        mask[1, S - 5:] = False                     # right padding too
+    kw = dict(kv_mask=mask if (pad or causal) else None, causal=causal,
+              q_offset=q_offset)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want_lse = fa.flash_lse_reference(q, k, **kw)
+    live = want_lse > -1e30                  # rows that see a valid key
+    assert torch.equal(lse[~live], want_lse[~live])     # the sentinel
+    if live.any():
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-5 * max(
+            1.0, want_lse[live].abs().max().item())
+    di = (out.float() * do.float()).sum(-1)
+    want = fa.flash_attention_bwd_reference(q, k, v, do, lse, di, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for fused in (False, True):
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di, fused=fused,
+                                          **kw)
+        for a, b in zip(got, want):
+            _close(a, b, tol)
+        again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di,
+                                            fused=fused, **kw)
+        for a, b in zip(got, again):                # no atomics: the same
+            assert torch.equal(a, b)                # bits every run
+
+
+def test_autograd_function_launches_the_backward_kernels(dev):
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops.attention import multi_head_attention
+
+    q, k, v = (torch.randn(2, 40, 2, 64, device=dev, requires_grad=True)
+               for _ in range(3))
+    for impl, dq_launches in (("cuda", 1), ("cuda_fused", 0)):
+        before = (fa.KERNEL.launches, fa.DQ_KERNEL.launches,
+                  fa.DKV_KERNEL.launches)
+        out = multi_head_attention(q, k, v, causal=True, impl=impl)
+        out.square().sum().backward()
+        assert (fa.KERNEL.launches - before[0],
+                fa.DQ_KERNEL.launches - before[1],
+                fa.DKV_KERNEL.launches - before[2]) == (1, dq_launches, 1)
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_reference(*ref, causal=True).square().sum().backward()
+    for t, r in zip((q, k, v), ref):
+        _close(t.grad / 2, r.grad, 1e-4)           # two backward passes
 
 
 INT4 = [  # (M, D, F, group)

@@ -33,6 +33,13 @@ def test_import_loads_no_jax():
                          check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert "emmax_torch.models.load" in MODULES and len(MODULES) > 20
+    assert {"emmax_torch.train", "emmax_torch.training.train_step",
+            "emmax_torch.training.train_state", "emmax_torch.training.loop",
+            "emmax_torch.training.checkpointing",
+            "emmax_torch.training.metrics", "emmax_torch.data.gcot",
+            "emmax_torch.data.collators", "emmax_torch.data.prefetch",
+            "emmax_torch.conf.vla", "emmax_torch.conf.registry"} <= set(
+        MODULES)
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -56,9 +56,9 @@ def test_fuse_multimodal_matches_left_padded_and_all_pad_rows():
     je, jm, _, jp = j_vlm.fuse_multimodal(jnp.asarray(patches),
                                           jnp.asarray(text),
                                           jnp.asarray(mask))
-    te, tm, tp = t_vlm.fuse_multimodal(torch.from_numpy(patches),
-                                       torch.from_numpy(text),
-                                       torch.from_numpy(mask))
+    te, tm, _, tp = t_vlm.fuse_multimodal(torch.from_numpy(patches),
+                                          torch.from_numpy(text),
+                                          torch.from_numpy(mask))
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
