@@ -7,8 +7,8 @@
 Phases, each raising on failure (the script then exits non-zero):
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
-2. build both hand-written kernels from ``emmax_torch/csrc`` (one ``nvcc``
-   per source, started together);
+2. build the four hand-written kernel sources from ``emmax_torch/csrc``
+   (one ``nvcc`` per source, started together);
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes: flash-attention forward for DINOv2, SigLIP and the Llama
    prefill (left-padded, into the whole cache); int4 matmul at M = 1 and
@@ -46,7 +46,29 @@ Phases, each raising on failure (the script then exits non-zero):
    then a few steps on one batch: step ms, tokens/s, peak memory, and
    the step's share of the bf16 peak by ``scripts/bench_train_step.py``'s
    accounting;
-8. ``vla-train``: full width with the decoder cut to 8 of 32 layers (a
+8. the paged-attention kernel (in phase 3's call, so ``--kernels-only``
+   runs it) against its plain version at the batched engines' shape (B6,
+   H32, hd 128, page size 128, 6 pages per row, ragged lengths 1 / 127 /
+   128 / 129 / 458 / 768 on non-contiguous pages) with bf16 pages, int8
+   pages and one GQA case (KV 8, G 4); device and eager ms, plain ms, the
+   bound (the valid tokens' K/V bytes and scales, q and out over 3.35
+   TB/s) and, as the library time, ``scaled_dot_product_attention`` on the
+   K/V gathered to a dense layout outside the timed region;
+9. batched serving, tiny config: ``PagedServingEngine(paged_attn=
+   "kernel")`` on the card gives the CPU engine's greedy tokens (fp32,
+   int8 pages off and on), and the card's kernel decode step agrees with
+   the gather step (logits rel-RMSE < 2e-2 after two bursts, mixed
+   prompt lengths; fp32 and bf16, int8 pages off and on);
+10. batched serving at full width with int4 weights, at the settings of
+   ``bench.py:606-677``: six requests of 64 new tokens through
+   ``PagedServingEngine`` (6 slots, 34 pages of 128, burst 64) under
+   "kernel" and "burstdense" with int8 pages and under "kernel" with bf16
+   pages, four equal-length queries over one frame admitted with
+   ``submit_shared`` and independently, and ``ContinuousServingEngine``
+   (6 slots, cache 1024, burst 32); per run aggregate tokens/s after a
+   warm-up run, admission ms, median burst ms, peak memory, each
+   kernel's launches, and the device's busy share of one profiled burst;
+11. ``vla-train``: full width with the decoder cut to 8 of 32 layers (a
    cut of memory: fp32 master, gradients and AdamW moments of a 32-layer
    decoder do not fit one card), GCOT records and synthetic frames
    through ``GCOTDataset`` -> ``collate_train`` -> the prefetching loader
@@ -54,8 +76,9 @@ Phases, each raising on failure (the script then exits non-zero):
    projector, a Solver eval, and a checkpoint saved to a temporary
    directory, restored, and held equal to the live state.
 
-The line before the last is the card's name and power limit; the one
-before it a JSON object with one entry per kernel; the last line is
+Phases 7 and 11 run after phase 10. The line before the last is the
+card's name and power limit; the one before it a JSON object with one
+entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,10 +115,24 @@ ALIGN_STEPS = 3                # timed steps after one warm-up step
 LOSS_RTOL, GRAD_RTOL = 1e-2, 2e-2
 VLA_LAYERS = 8                 # vla-train: decoder cut to 8 of 32 layers
 VLA_B, VLA_STEPS = 4, 3
+# batched serving (bench.py:606-677): six requests of 64 new tokens
+PAGED_REQUESTS, PAGED_NEW = 6, 64
+PAGED_KW = dict(num_slots=6, n_pages=34, page_size=128,
+                max_pages_per_slot=6, burst=64)
+PAGED_LENGTHS = (1, 127, 128, 129, 458, 768)   # kernel check, ragged rows
+SHARED_QUERIES, SHARED_NEW = 4, 8
+PROFILE_BURST = 8              # the profiled burst's length, in steps
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_phase(name: str) -> None:
+    log(f"phase {name} starts at {time.perf_counter() - T0:.1f} s")
 
 
 def smi_line() -> str:
@@ -468,6 +505,97 @@ def training_kernel_phase(dev):
     return recs
 
 
+def check_paged(dev, gen, name, KV, G, kdt):
+    """The paged-attention kernel against its plain version at the batched
+    engines' shape: B = len(PAGED_LENGTHS) rows of ragged lengths, page
+    size 128, 6 pages per row on shuffled page ids, hd 128. Held in fp32
+    q (tolerance FP32_RTOL) and bf16 q (BF16_RTOL: the TPU kernel re-rounds
+    its bf16 output once per compute block, this one keeps fp32 and rounds
+    once); timed with bf16 q, as the engine gives it."""
+    from emmax_torch.ops import paged_attention as pa
+    from emmax_torch.serving.paged import _row_quantize
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    B, hd, ps, MP = len(PAGED_LENGTHS), 128, PAGED_KW["page_size"], 6
+    H, P = KV * G, B * MP + 4
+    k = torch.randn((KV, P, ps, hd), generator=gen, device=dev)
+    v = torch.randn((KV, P, ps, hd), generator=gen, device=dev)
+    ks = vs = None
+    if kdt == torch.int8:
+        (k, ks), (v, vs) = _row_quantize(k), _row_quantize(v)
+    else:
+        k, v = k.to(kdt), v.to(kdt)
+    perm = torch.randperm(P, generator=gen, device=dev)[:B * MP]
+    table = perm.reshape(B, MP).to(torch.int32)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    q32 = torch.randn((B, H, hd), generator=gen, device=dev) * hd ** -0.5
+    kw = dict(k_scale=ks, v_scale=vs)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = q32.to(dt)
+        errs[dt] = rel_err(pa.paged_attention_cuda(q, k, v, lengths, table,
+                                                   **kw),
+                           pa.paged_attention_reference(q, k, v, lengths,
+                                                        table, **kw))
+    rel32, rel = errs[torch.float32][1], errs[torch.bfloat16][1]
+    if not (rel32 <= FP32_RTOL and rel <= BF16_RTOL):
+        raise AssertionError(f"paged {name}: rel err fp32 {rel32:.3g} "
+                             f"(tol {FP32_RTOL}), bf16 {rel:.3g} "
+                             f"(tol {BF16_RTOL})")
+    q = q32.bfloat16()
+    ms, eager = time_ms(lambda: pa.paged_attention_cuda(q, k, v, lengths,
+                                                        table, **kw))
+    plain, _ = time_ms(lambda: pa.paged_attention_reference(
+        q, k, v, lengths, table, **kw), iters=5)
+    # library yardstick: SDPA over the same K/V gathered to a dense
+    # [B, H, S, hd] bf16 layout (dequantized, GQA heads repeated) outside
+    # the timed calls; no PyTorch call takes a page table
+    ids = table.long()
+
+    def dense(pages, scale):
+        g = pages[:, ids].float()
+        if scale is not None:
+            g = g * scale[:, ids] / pa.MAX_INT8
+        g = g.reshape(KV, B, MP * ps, hd).permute(1, 0, 2, 3)
+        return g.repeat_interleave(G, dim=1).bfloat16().contiguous()
+
+    kd, vd = dense(k, ks), dense(v, vs)
+    mask = (torch.arange(MP * ps, device=dev)[None]
+            < lengths[:, None])[:, None, None]             # [B, 1, 1, S]
+    lib, _ = time_ms(lambda: sdpa(q[:, :, None], kd, vd, attn_mask=mask,
+                                  scale=1.0))
+    _, lib_rel = rel_err(sdpa(q[:, :, None], kd, vd, attn_mask=mask,
+                              scale=1.0)[:, :, 0],
+                         pa.paged_attention_reference(q, k, v, lengths,
+                                                      table, **kw))
+    tokens = int(lengths.sum())
+    row = hd * k.element_size() + (4 if kdt == torch.int8 else 0)
+    n_bytes = 2 * KV * tokens * row + 2 * B * H * hd * q.element_size() + (
+        B * 4 + B * MP * 4)
+    bms, by = bound_ms(n_bytes, 4.0 * H * hd * tokens)
+    return {"name": "paged_attention", "shape": name,
+            "dtype": f"q bf16, pages {str(kdt)[6:]}",
+            "max_abs_err": errs[torch.bfloat16][0], "rel_err": rel,
+            "fp32_rel_err": rel32, "library_rel_err": lib_rel, "ms": ms,
+            "eager_ms": eager, "plain_ms": plain, "library_ms": lib,
+            "library_note": "sdpa on K/V gathered to dense bf16 [B, H, S, "
+                            "hd] outside the timed calls",
+            "bound_ms": bms, "bound_by": by}
+
+
+def paged_kernel_phase(dev):
+    gen = torch.Generator(dev)
+    gen.manual_seed(2)
+    lens = "/".join(str(n) for n in PAGED_LENGTHS)
+    recs = [check_paged(dev, gen, f"B6 KV{kv} G{g} hd128 ps128 MP6 "
+                        f"len {lens}", kv, g, kdt)
+            for kv, g, kdt in ((32, 1, torch.bfloat16),
+                               (32, 1, torch.int8), (8, 4, torch.bfloat16))]
+    for r in recs:
+        log("kernel " + json.dumps(r))
+    return recs
+
+
 # --------------------------------------------------------------- the path --
 
 def tiny_parity(dev):
@@ -662,6 +790,219 @@ def run_path(dev, quantize, kernels):
             profile["phases"]["decode"]["busy_ms_per_forward"] / per_forward)
     log("path " + json.dumps(summary))
     return summary
+
+
+# --------------------------------------------------------- batched serving --
+
+def _rel_rmse(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float(((got - want) ** 2).mean().sqrt()
+                 / ((want ** 2).mean().sqrt() + 1e-9))
+
+
+def tiny_batched_parity(dev):
+    """The tiny config through ``PagedServingEngine(paged_attn="kernel")``:
+    the card (the kernel) against the CPU (its plain version) in fp32,
+    token for token, with int8 pages off and on; then the card's kernel
+    decode step against the gather step on one admitted pool after two
+    bursts (``scripts/tpu_checks.py:paged_parity``), in fp32 and bf16."""
+    from emmax_torch.models.load import load
+    from emmax_torch.serving.engine import encode_frame
+    from emmax_torch.serving.paged import (PagedServingEngine,
+                                           _paged_decode_step)
+
+    cfg, params, tok, _, _ = load("tiny", dtype=torch.float32, device="cpu",
+                                  seed=3)
+    on_card = _tree_to(params, dev)
+    rng = np.random.default_rng(11)
+    prompts = [f"In: stack the {w} cups\nOut:"
+               for w in ("red", "blue", "green")]   # mixed lengths
+    # one encode, fed to both sides: two encodes may round differently
+    patches = [encode_frame(params, cfg, {
+        n: torch.from_numpy(rng.normal(size=(1, v.img_size, v.img_size, 3))
+                            .astype(np.float32)) for n, v in cfg.vision})
+        for _ in prompts]
+    for quantized in (False, True):
+        outs = []
+        for device, p in (("cpu", params), (dev, on_card)):
+            eng = PagedServingEngine(
+                cfg, p, tok, num_slots=2, n_pages=24, page_size=16,
+                max_pages_per_slot=8, burst=4, paged_attn="kernel",
+                quantized_cache=quantized, device=device)
+            rids = [eng.submit(pr, {"patches": pt.to(device)},
+                               max_new_tokens=12)
+                    for pr, pt in zip(prompts, patches)]
+            done = eng.run_until_complete()
+            outs.append([done[r] for r in rids])
+        if outs[0] != outs[1]:
+            raise AssertionError(f"tiny paged kernel, int8 pages "
+                                 f"{quantized}: card {outs[1]} != CPU "
+                                 f"{outs[0]}")
+        log(f"tiny paged kernel parity (int8 pages {quantized}): card == "
+            f"CPU, {sum(len(o) for o in outs[1])} tokens over 3 requests")
+    steps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, p, _, _, _ = load("tiny", dtype=dtype, device=dev, seed=3)
+        for quantized in (False, True):
+            eng = PagedServingEngine(
+                cfg, p, tok, num_slots=3, n_pages=16, page_size=128,
+                max_pages_per_slot=8, burst=8, paged_attn="gather",
+                quantized_cache=quantized, device=dev)
+            for pr, pt in zip(prompts, patches):
+                eng.submit(pr, {"patches": pt.to(dev, dtype)},
+                           max_new_tokens=24)
+            eng.step()
+            eng.step()                  # two real bursts first
+            out = {mode: _paged_decode_step(
+                p["llm"], cfg.llm, eng.pool, page_size=128, n_pages=16,
+                paged_attn=mode) for mode in ("gather", "kernel")}
+            rmse = _rel_rmse(out["kernel"][2], out["gather"][2])
+            agree = int((out["kernel"][1] == out["gather"][1]).sum())
+            key = f"{str(dtype)[6:]} int8 pages {quantized}"
+            steps[key] = {"logit_rel_rmse": rmse, "argmax_agree": agree}
+            if not (rmse < 2e-2 and agree >= 2):
+                raise AssertionError(f"kernel vs gather step, {key}: "
+                                     f"rel-RMSE {rmse:.3g}, argmax agree "
+                                     f"{agree}/3")
+    log("tiny kernel-vs-gather step " + json.dumps(steps))
+    return steps
+
+
+def serve(make_engine, submit):
+    """One batched run: ``submit(engine)`` queues the requests (returns
+    their ids), then admission and every burst are timed on the host clock
+    ending in a sync (each burst ends in its one fetch)."""
+    eng = make_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = submit(eng)
+    eng._admit()
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) * 1e3
+    bursts = []
+    while eng.queue or eng.running:
+        t1 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        bursts.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    out = [eng.finished[r] for r in rids]
+    return eng, out, {"admit_ms": admit_ms, "burst_ms": bursts,
+                      "median_burst_ms": float(np.median(bursts)),
+                      "wall_s": wall, "tokens": sum(len(o) for o in out),
+                      "agg_tok_s": sum(len(o) for o in out) / wall}
+
+
+def batched_run(dev, name, make_engine, submit, kernels, burst):
+    """A warm-up run, a timed run (launches counted, peak memory), then
+    one profiled burst of ``PROFILE_BURST`` steps (to bound the profiler's
+    cost) of a fresh engine that differs only in its burst length; its
+    busy share is the device time per step over the timed run's wall time
+    per step. Checks the outputs."""
+    serve(make_engine, submit)                              # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    eng, out, rec = serve(make_engine, submit)
+    launches = {k.name: k.launches for k in kernels}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rec["launches"] = launches
+    rec["decode_steps"] = len(rec["burst_ms"]) * burst
+    for o in out:
+        if not o or any(not (0 <= t < eng.cfg.llm.vocab_size) for t in o):
+            raise AssertionError(f"{name}: bad tokens {o[:8]}")
+    fresh = make_engine(burst=PROFILE_BURST)
+    submit(fresh)
+    fresh._admit()
+    torch.cuda.synchronize()
+    rec["profile"] = profile_step(
+        fresh.step, rec["median_burst_ms"] * PROFILE_BURST / burst)
+    rec["profile"]["steps"] = PROFILE_BURST
+    rec.pop("burst_ms")
+    rec["name"] = name
+    log("batched " + json.dumps(rec))
+    return rec
+
+
+def batched_phase(dev, kernels):
+    """Full-width Emma-X (int4 weights, random from the seeded generator)
+    through the batched engines at bench.py's settings."""
+    from emmax_torch.models.load import load
+    from emmax_torch.ops.image import preprocess_for_towers
+    from emmax_torch.serving.continuous import ContinuousServingEngine
+    from emmax_torch.serving.paged import PagedServingEngine
+    from emmax_torch.vla.prompting import build_emma_x_task_prompt
+
+    cfg, params, tok, transforms, _ = load(MODEL_ID, quantize="int4",
+                                           device="cuda", seed=0)
+    rng = np.random.default_rng(9)
+    pixels = [preprocess_for_towers(torch.from_numpy(rng.integers(
+        0, 256, (1, 256, 256, 3), dtype=np.uint8)).to(dev), transforms)
+        for _ in range(PAGED_REQUESTS)]
+    prompt = build_emma_x_task_prompt(TASK, (128, 96))
+
+    def submit_all(eng):
+        return [eng.submit(prompt, px, max_new_tokens=PAGED_NEW)
+                for px in pixels]
+
+    def paged(mode, quantized, **kw):
+        return lambda **o: PagedServingEngine(
+            cfg, params, tok, paged_attn=mode, quantized_cache=quantized,
+            device="cuda", **{**PAGED_KW, **kw, **o})
+
+    runs = {}
+    for name, mode, quantized in (("paged kernel int8", "kernel", True),
+                                  ("paged burstdense int8", "burstdense",
+                                   True),
+                                  ("paged kernel bf16", "kernel", False)):
+        rec = batched_run(dev, name, paged(mode, quantized), submit_all,
+                          kernels, PAGED_KW["burst"])
+        n = rec["launches"]
+        if mode == "kernel" and n["paged_attention"] < (
+                cfg.llm.n_layers * rec["decode_steps"]):
+            raise AssertionError(f"{name}: {n['paged_attention']} "
+                                 f"paged_attention launches for "
+                                 f"{rec['decode_steps']} decode steps")
+        runs[name] = rec
+    cont = batched_run(dev, "continuous", lambda **o: (
+        ContinuousServingEngine(cfg, params, tok, **{
+            "num_slots": PAGED_REQUESTS, "cache_len": 1024, "burst": 32,
+            "device": "cuda", **o})), submit_all, kernels, 32)
+    runs["continuous"] = cont
+
+    # shared prefix: four equal-length queries over one frame, admitted
+    # with submit_shared (the prefix prefill is timed from submission)
+    # and independently
+    queries = [prompt[:-1] + c for c in "ABCD"[:SHARED_QUERIES]]
+    shared = {}
+    for how in ("shared", "independent"):
+        def submit(eng, how=how):
+            if how == "shared":
+                return eng.submit_shared(queries, pixels[0],
+                                         max_new_tokens=SHARED_NEW)
+            return [eng.submit(q, pixels[0], max_new_tokens=SHARED_NEW)
+                    for q in queries]
+
+        make = paged("burstdense", True, num_slots=SHARED_QUERIES,
+                     max_pages_per_slot=8)
+        serve(make, submit)                                  # warm-up
+        for k in kernels:
+            k.launches = 0
+        _, out, rec = serve(make, submit)
+        rec["launches"] = {k.name: k.launches for k in kernels}
+        rec.pop("burst_ms")
+        shared[how] = rec
+        log(f"shared-prefix {how} " + json.dumps(rec))
+    runs["shared_prefix"] = shared
+    for name, rec in [*runs.items()][:4] + [
+            (f"shared {h}", r) for h, r in shared.items()]:
+        for kname in ("flash_fwd", "int4_matmul"):
+            if rec["launches"][kname] == 0:
+                raise AssertionError(f"{name}: launched no {kname}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 # ---------------------------------------------------------------- training --
@@ -969,6 +1310,7 @@ def main(argv) -> int:
         return 1
     from emmax_torch.ops import flash_attention as fa
     from emmax_torch.ops import int4_matmul
+    from emmax_torch.ops import paged_attention as pa
     from emmax_torch.ops.cuda_build import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 matmuls in fp32
@@ -978,16 +1320,21 @@ def main(argv) -> int:
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, int4_matmul.KERNEL]
+    serving_kernels = [fa.KERNEL, int4_matmul.KERNEL, pa.KERNEL]
     t0 = time.perf_counter()
-    secs = build_all(kernels)
+    secs = build_all(kernels + [pa.KERNEL])
     log(f"built {secs} in {time.perf_counter() - t0:.1f} s (parallel)")
-    for k in (fa.KERNEL, fa.DQ_KERNEL, int4_matmul.KERNEL):
+    for k in (fa.KERNEL, fa.DQ_KERNEL, int4_matmul.KERNEL, pa.KERNEL):
         log(f"--- nvcc {k.source}\n{k.build_log.strip()}")
     flash, int4 = kernel_phase(dev)
     train_kernels = training_kernel_phase(dev)
+    paged_kernels = paged_kernel_phase(dev)
     if "--kernels-only" in argv:
         return 0
+    log_phase("tiny_parity")
     tiny_parity(dev)
+    tiny_steps = tiny_batched_parity(dev)
+    log_phase("run_path")
     bf16 = run_path(dev, None, kernels)
     if bf16["launches"]["flash_fwd"] == 0:
         raise AssertionError("bf16 path launched no flash_fwd kernel")
@@ -995,7 +1342,13 @@ def main(argv) -> int:
     for name in ("flash_fwd", "int4_matmul"):
         if q4["launches"][name] == 0:
             raise AssertionError(f"int4 path launched no {name} kernel")
+    log_phase("batched_phase")
+    batched = batched_phase(dev, serving_kernels)
+    log("batched serving " + json.dumps({"tiny_steps": tiny_steps,
+                                         "runs": batched}))
+    log_phase("align7b_phase")
     align = align7b_phase(dev, kernels)
+    log_phase("vla_train_phase")
     vla = vla_train_phase(dev, kernels)
     log("training " + json.dumps({"align7b": align, "vla_train": vla}))
 
@@ -1033,7 +1386,19 @@ def main(argv) -> int:
               "emmax_tpu/ops/int4_matmul.py:404",
               q4["launches"]["int4_matmul"],
               launches_path="int4 serving requests"),
+        entry(paged_kernels[1], pa.KERNEL, "emmax_tpu/serving/paged.py:362",
+              batched["paged kernel int8"]["launches"]["paged_attention"],
+              launches_path="full-width paged kernel run (int8 pages), "
+                            "one burst of 64 steps",
+              library_note=paged_kernels[1]["library_note"],
+              bf16_pages={k: paged_kernels[0][k] for k in
+                          ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "max_abs_err")},
+              gqa={k: paged_kernels[2][k] for k in
+                   ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err")}),
     ]
+    log_phase("report")
     print(json.dumps({"kernels": entries}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@
 namespace emmax {
 
 // dtype codes passed from the Python wrappers
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);

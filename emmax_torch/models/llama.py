@@ -12,6 +12,12 @@ fp32 cos/sin, SwiGLU MLP, fp32 attention softmax.
 The KV cache is preallocated (``init_kv_cache``) and updated in place: a
 cached call writes its K/V at slots ``[len, len + L)`` of each layer,
 reads the layer's whole cache back as a view, and advances ``len``.
+``len`` is a host int shared by every row (the single-request engine packs
+prompts left-padded) or a [B] tensor of per-row cursors (the slot-pool
+engine, ``serving/continuous.py``): each row then writes at its own slot,
+takes RoPE at its own position and masks causally at its own cursor. An
+int8 cache (``quantized=True``) stores absmax/127 rows with fp32 scales
+and is read back dequantized in the compute dtype, as in JAX.
 
 The uncached path is the training path: each layer may be rematerialized
 (``remat``), and the loss heads (``cross_entropy_loss``, the
@@ -31,7 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from emmax_torch.models.tree import ParamTree
-from emmax_torch.ops.attention import multi_head_attention
+from emmax_torch.ops.attention import multi_head_attention, per_row
 from emmax_torch.ops.norms import rms_norm
 from emmax_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -96,16 +102,41 @@ def init_llama_params(generator: torch.Generator, cfg: LlamaConfig,
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device="cpu") -> Params:
+                  device="cpu", quantized: bool = False) -> Params:
     """Cache layout: k/v ``[n_layers, B, S, KV, hd]``, the ``[B, S]`` slot
     mask, and ``len``, the host-side write cursor shared by every row
-    (serving packs prompts left-padded)."""
+    (serving packs prompts left-padded; the slot-pool engine replaces it
+    with a [B] tensor of per-row cursors).
+
+    ``quantized=True`` stores K/V as int8 with fp32 per-(position, head)
+    scales ``k_scale``/``v_scale`` [..., 1]; ``dtype`` then names only the
+    dtype the cache is read back in."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "mask": torch.zeros((batch, max_len), dtype=torch.bool,
-                                device=device),
-            "len": 0}
+    cache = {"mask": torch.zeros((batch, max_len), dtype=torch.bool,
+                                 device=device),
+             "len": 0}
+    if quantized:
+        sshape = shape[:-1] + (1,)
+        cache.update(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.ones(sshape, dtype=torch.float32, device=device))
+    else:
+        cache.update(k=torch.zeros(shape, dtype=dtype, device=device),
+                     v=torch.zeros(shape, dtype=dtype, device=device))
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor):
+    """[B, L, KV, hd] -> (int8 values, fp32 scales [B, L, KV, 1]): absmax
+    / 127, round half to even, clip to +-127 (the dense cache's
+    convention; the page pool's is ``serving/paged._row_quantize``)."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -203,18 +234,57 @@ def _layer(h, p, cos, sin, kv_mask, cfg: LlamaConfig, attn_impl: str):
     return _mlp(h, p, cfg)
 
 
-def _cached_layer(h, p, cos, sin, cache, i: int, t0: int, slot_mask,
+def _row_slots(t0: torch.Tensor, L: int, S: int):
+    """(row index [B, 1], slots [B, L]) of L new tokens per row at the
+    per-row cursors ``t0``; the start is clamped so the L slots fit, as
+    the JAX package's ``dynamic_update_slice`` clamps it."""
+    start = torch.clamp(t0.long(), 0, S - L)
+    rows = torch.arange(t0.shape[0], device=t0.device)[:, None]
+    return rows, start[:, None] + torch.arange(L, device=t0.device)[None]
+
+
+def _cache_write(cache: Params, key: str, i: int, new: torch.Tensor,
+                 t0) -> None:
+    """Write ``new`` [B, L, ...] into layer ``i`` of ``cache[key]`` at slot
+    ``t0`` (host int) or at each row's cursor (a [B] tensor), in place."""
+    buf = cache[key][i]                               # [B, S, ...] view
+    L = new.shape[1]
+    if per_row(t0):
+        rows, slots = _row_slots(t0, L, buf.shape[1])
+        buf[rows, slots] = new.to(buf.dtype)
+    else:
+        buf[:, t0:t0 + L] = new
+
+
+def _cache_read(cache: Params, key: str, i: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``i`` of ``cache[key]``: a view, or int8 rows dequantized to
+    ``dtype`` (values and scales each cast first, as JAX's ``_read``)."""
+    vals = cache[key][i]
+    if f"{key}_scale" not in cache:
+        return vals
+    return vals.to(dtype) * cache[f"{key}_scale"][i].to(dtype)
+
+
+def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
                   cfg: LlamaConfig, attn_impl: str):
-    """One decoder layer that writes its K/V into the cache at ``t0`` and
-    attends over the layer's whole cache."""
+    """One decoder layer that writes its K/V into the cache at ``t0`` (host
+    int or per-row [B] cursors) and attends over the layer's whole cache."""
     B, L, _ = h.shape
     x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
     k_new = mm(x, p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     v_new = mm(x, p["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     k_new = apply_rope(k_new, cos, sin)
-    k_c, v_c = cache["k"][i], cache["v"][i]          # [B, S, KV, hd] views
-    k_c[:, t0:t0 + L] = k_new
-    v_c[:, t0:t0 + L] = v_new
+    if "k_scale" in cache:
+        for key, new in (("k", k_new), ("v", v_new)):
+            qv, sc = _quantize_kv(new)
+            _cache_write(cache, key, i, qv, t0)
+            _cache_write(cache, f"{key}_scale", i, sc, t0)
+    else:
+        _cache_write(cache, "k", i, k_new, t0)
+        _cache_write(cache, "v", i, v_new, t0)
+    k_c = _cache_read(cache, "k", i, h.dtype)        # [B, S, KV, hd]
+    v_c = _cache_read(cache, "v", i, h.dtype)
     q = mm(x, p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     # query i (at slot t0 + i) attends to valid slots j <= t0 + i
@@ -239,8 +309,9 @@ def llama_forward(params: Params, cfg: LlamaConfig,
     Without a cache: causal self-attention over the L tokens (+ the [B, L]
     padding mask), each layer under ``remat`` (:func:`remat_call`). With a
     cache: the L tokens are written at slots ``[len, len + L)`` in place
-    and attend to every valid slot up to their own; the cache's mask and
-    ``len`` are updated and the same dict is returned.
+    (per row when ``len`` is a [B] tensor) and attend to every valid slot
+    up to their own; the cache's mask and ``len`` are updated and the same
+    dict is returned.
 
     ``return_hidden``: the final-normed hidden states [B, L, D] instead of
     logits, for ``chunked_ce_loss_and_preds``. The JAX package's
@@ -257,7 +328,8 @@ def llama_forward(params: Params, cfg: LlamaConfig,
             positions = torch.arange(L, dtype=torch.int32,
                                      device=inputs_embeds.device).expand(B, L)
         if kv_cache is not None:
-            positions = positions + kv_cache["len"]
+            t0 = kv_cache["len"]
+            positions = positions + (t0[:, None] if per_row(t0) else t0)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
 
@@ -268,11 +340,17 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                            attn_impl)
     else:
         t0 = kv_cache["len"]
-        if t0 + L > kv_cache["k"].shape[2]:
-            raise ValueError(f"KV cache overflow: {t0} + {L} > "
-                             f"{kv_cache['k'].shape[2]} slots")
-        kv_cache["mask"][:, t0:t0 + L] = (
-            True if mask is None else mask.to(torch.bool))
+        S = kv_cache["k"].shape[2]
+        if per_row(t0):
+            rows, slots = _row_slots(t0, L, S)
+            kv_cache["mask"][rows, slots] = (
+                True if mask is None else mask.to(torch.bool))
+        else:
+            if t0 + L > S:
+                raise ValueError(f"KV cache overflow: {t0} + {L} > {S} "
+                                 "slots")
+            kv_cache["mask"][:, t0:t0 + L] = (
+                True if mask is None else mask.to(torch.bool))
         for i in range(cfg.n_layers):
             h = _cached_layer(h, layer_slice(layers, i), cos, sin, kv_cache,
                               i, t0, kv_cache["mask"], cfg, attn_impl)

@@ -8,6 +8,9 @@ Port of ``emmax_tpu/models/vla.py`` on the plain ``ServingEngine``
   (or the proprio Q1/Q99 for ``type="pos"``);
 - ``predict_action(image, instruction, unnorm_key)``: OpenVLA-style, append
   the empty token and decode exactly ``action_dim`` action tokens;
+- ``generate_batch(images, prompts)``: batched text, or with
+  ``return_string_probabilities`` the first-token probabilities of
+  candidate strings;
 - ``get_prompt(task_label, gripper_position)``.
 """
 
@@ -107,6 +110,26 @@ class EmmaXVLA:
         out = self.engine.generate_ids([prompt_text], self._pixels(image),
                                        max_new_tokens=max_new_tokens)
         return self._decode_row(out[0])
+
+    def generate_batch(self, images, prompt_texts: List[str],
+                       max_new_tokens: int = 512,
+                       return_string_probabilities: Optional[List[str]] = None):
+        """Batched generation, one frame per prompt. With
+        ``return_string_probabilities``: per prompt, the normalized
+        probabilities of those strings' first tokens instead (the
+        reference's True/False and multiple-choice VQA scoring)."""
+        pixels = self._pixels(images)
+        if return_string_probabilities is None:
+            return self.engine.generate(prompt_texts, pixels,
+                                        max_new_tokens=max_new_tokens)
+        candidate_ids = []
+        for s in return_string_probabilities:
+            ids = self.tokenizer.encode(s, add_special_tokens=False)
+            # drop the word-boundary piece; take the first content token
+            candidate_ids.append(ids[1] if len(ids) > 1 else ids[0])
+        probs = self.engine.first_token_probs(prompt_texts, pixels,
+                                              candidate_ids)
+        return [row.tolist() for row in probs]
 
     def generate_actions(self, image, prompt_text: str, type: str = "act",
                          max_new_tokens: int = 512

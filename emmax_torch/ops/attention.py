@@ -1,34 +1,48 @@
 """Attention dispatch: the plain PyTorch path and the flash kernel.
 
 Port of ``emmax_tpu/ops/attention.py``. The model passes structured mask
-information (``kv_mask`` [B, S] slot validity, ``causal``, and a scalar
+information (``kv_mask`` [B, S] slot validity, ``causal``, and
 ``q_offset``: the cache slot of the first query) rather than a dense mask,
 so the kernel can build masks per tile and skip tiles above the diagonal.
-Per-row offsets and chunk masks belong to later serving engines.
+``q_offset`` is a scalar, or a per-row [B] tensor for the batched engines
+whose rows sit at their own cache cursors; per-row offsets take the plain
+path, as in the JAX package. Chunk masks belong to the speculative engine.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 NEG_INF = -2.3819763e38  # large negative for masking (fits bf16/fp32)
+Offset = Union[int, torch.Tensor]
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
 
 
+def per_row(q_offset: Offset) -> bool:
+    """Whether ``q_offset`` holds one cursor per row."""
+    return isinstance(q_offset, torch.Tensor) and q_offset.ndim > 0
+
+
 def _dense_mask(q_len: int, kv_len: int, kv_mask: Optional[torch.Tensor],
-                causal: bool, q_offset: int,
+                causal: bool, q_offset: Offset,
                 device: torch.device) -> Optional[torch.Tensor]:
-    """[B or 1, 1, q_len, kv_len] bool (True = attend)."""
+    """[B or 1, 1, q_len, kv_len] bool (True = attend). ``q_offset`` is a
+    scalar or a per-row [B] tensor."""
     mask = None
     if causal:
-        qi = torch.arange(q_len, device=device)[:, None] + q_offset
         kj = torch.arange(kv_len, device=device)
-        mask = (kj[None, :] <= qi)[None, None]
+        if per_row(q_offset):
+            qi = (q_offset.to(device)[:, None]
+                  + torch.arange(q_len, device=device)[None, :])  # [B, Lq]
+            mask = (kj[None, None, :] <= qi[:, :, None])[:, None]
+        else:
+            qi = torch.arange(q_len, device=device)[:, None] + q_offset
+            mask = (kj[None, :] <= qi)[None, None]
     if kv_mask is not None:
         km = kv_mask[:, None, None, :].bool()
         mask = km if mask is None else (mask & km)
@@ -37,7 +51,7 @@ def _dense_mask(q_len: int, kv_len: int, kv_mask: Optional[torch.Tensor],
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   kv_mask: Optional[torch.Tensor] = None,
-                  causal: bool = False, q_offset: int = 0,
+                  causal: bool = False, q_offset: Offset = 0,
                   sm_scale: Optional[float] = None) -> torch.Tensor:
     """The plain path: q [B, Lq, H, hd]; k/v [B, Lk, KVH, hd].
 
@@ -67,7 +81,7 @@ def resolve_attn_impl(impl: str, x: torch.Tensor) -> str:
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, kv_mask: Optional[torch.Tensor] = None,
-                         causal: bool = False, q_offset: int = 0,
+                         causal: bool = False, q_offset: Offset = 0,
                          impl: str = "auto") -> torch.Tensor:
     """Unified attention entry point.
 
@@ -75,9 +89,12 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels for CUDA tensors, their plain versions for CPU tensors),
     "cuda_fused" (the same forward; the backward folds dQ into the dK/dV
     kernel as fp32 partials, the counterpart of "pallas_fused") or "auto".
+    A per-row ``q_offset`` takes the plain path under every impl, as the
+    JAX package sends it to XLA.
     """
     impl = resolve_attn_impl(impl, q)
-    if impl == "torch":
+    if impl == "torch" or (impl in ("cuda", "cuda_fused")
+                           and per_row(q_offset)):
         return xla_attention(q, k, v, kv_mask=kv_mask, causal=causal,
                              q_offset=q_offset)
     if impl in ("cuda", "cuda_fused"):

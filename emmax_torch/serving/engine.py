@@ -25,7 +25,8 @@ import torch
 from torch.profiler import record_function
 
 from emmax_torch.models.llama import embed_tokens, init_kv_cache
-from emmax_torch.models.vlm import VLM, VLMConfig, fuse_multimodal, llm_apply
+from emmax_torch.models.vlm import (VLM, VLMConfig, encode_images,
+                                    fuse_multimodal, llm_apply)
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256)
 DONE_CHECK_EVERY = 8
@@ -78,6 +79,44 @@ def _select_token(logits_f32: torch.Tensor, generator: torch.Generator,
         logits = logits.masked_fill(~keep, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def resolve_patches(params, cfg: VLMConfig, vision_input: Dict,
+                    attn_impl: str = "auto") -> torch.Tensor:
+    """``vision_input`` is a tower -> pixels dict (encoded now) or
+    ``{"patches": [B, P, D]}``, projected patch embeddings made earlier
+    (``encode_frame``). Engines compared token for token are fed the same
+    patches: two encodes of one frame may round differently."""
+    if "patches" in vision_input:
+        return vision_input["patches"]
+    return encode_images(params, cfg, vision_input, attn_impl=attn_impl)
+
+
+@torch.inference_mode()
+def encode_frame(params, cfg: VLMConfig, pixel_values: Dict, *,
+                 attn_impl: str = "auto") -> torch.Tensor:
+    """Vision towers + projector: pixels -> patch embeds [B, P, D]."""
+    return encode_images(params, cfg, pixel_values, attn_impl=attn_impl)
+
+
+@torch.inference_mode()
+def _prefill_last_logits(params, cfg: VLMConfig, input_ids: torch.Tensor,
+                         mask: torch.Tensor, pixel_values: Dict, *,
+                         cache_len: int,
+                         attn_impl: str = "auto") -> torch.Tensor:
+    """Last-position fp32 logits [B, V] of the multimodal prefill (for
+    string scoring)."""
+    B = input_ids.shape[0]
+    cache = init_kv_cache(cfg.llm, B, cache_len,
+                          dtype=params["llm"]["embed"].dtype,
+                          device=input_ids.device)
+    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl)
+    embeds, fmask, _, positions = fuse_multimodal(
+        patch_embeds, embed_tokens(params["llm"], input_ids), mask)
+    logits, _ = llm_apply(params["llm"], cfg.llm, embeds, mask=fmask,
+                          positions=positions, kv_cache=cache,
+                          attn_impl=attn_impl)
+    return logits[:, -1].float()
 
 
 class ServingEngine:
@@ -154,7 +193,8 @@ class ServingEngine:
 
         mark(0)
         with record_function("emmax_torch.encode"):
-            patch_embeds = self.model(pixel_values, attn_impl=self.attn_impl)
+            patch_embeds = resolve_patches(params, cfg, pixel_values,
+                                           self.attn_impl)
         mark(1)
         with record_function("emmax_torch.prefill"):
             embeds, fmask, _, positions = fuse_multimodal(
@@ -202,7 +242,8 @@ class ServingEngine:
                      max_new_tokens: Optional[int] = None,
                      suffix_ids=()) -> np.ndarray:
         """prompts: list[str]; pixel_values: tower name -> [B, H, W, 3]
-        normalized, on the device. Returns [B, max_new] token ids."""
+        normalized, on the device, or ``{"patches": [B, P, D]}`` (see
+        :func:`resolve_patches`). Returns [B, max_new] token ids."""
         ids, mask = self._prepare(prompts, suffix_ids)
         max_new = (self.options.max_new_tokens if max_new_tokens is None
                    else max_new_tokens)
@@ -211,6 +252,20 @@ class ServingEngine:
         generator.manual_seed(self.options.seed + self._step)
         out = self._generate(ids, mask, pixel_values, max_new, generator)
         return out.cpu().numpy()
+
+    def first_token_probs(self, prompts, pixel_values,
+                          candidate_ids) -> np.ndarray:
+        """Normalized probabilities of candidate first generated tokens
+        (the reference's ``generate_batch(return_string_probabilities=)``).
+        Returns [B, n_candidates]."""
+        ids, mask = self._prepare(prompts)
+        cache_len = _round_up(self.cfg.num_patches + ids.shape[1] + 8)
+        logits = _prefill_last_logits(self.model.tree(), self.cfg, ids, mask,
+                                      pixel_values, cache_len=cache_len,
+                                      attn_impl=self.attn_impl)
+        probs = torch.softmax(logits, dim=-1).cpu().numpy()
+        sel = probs[:, np.asarray(candidate_ids)]
+        return sel / sel.sum(axis=-1, keepdims=True)
 
     def generate(self, prompts, pixel_values,
                  max_new_tokens: Optional[int] = None):

@@ -196,3 +196,78 @@ def test_launch_counters_count_launches(dev):
     before = im.KERNEL.launches
     im.int4_matmul(torch.randn(2, 64, device=dev), qw)
     assert im.KERNEL.launches == before + 1
+
+
+# (B, KV, G, hd, page_size, pages per row); lengths cover 1, exactly one
+# page, one past a page and the whole table
+PAGED = [
+    (4, 4, 1, 16, 16, 3),
+    (4, 2, 4, 16, 16, 3),
+    (4, 8, 1, 128, 128, 3),
+    (4, 8, 4, 128, 128, 3),
+    (3, 2, 3, 72, 5, 4),
+]
+
+
+def _paged_inputs(dev, case, qdt, kdt, seed=0):
+    from emmax_torch.serving.paged import _row_quantize
+
+    B, KV, G, hd, ps, MP = case
+    g = torch.Generator(dev).manual_seed(seed)
+    P = B * MP + 2
+    q = (torch.randn(B, KV * G, hd, device=dev, generator=g)
+         * hd ** -0.5).to(qdt)
+    k, v = (torch.randn(KV, P, ps, hd, device=dev, generator=g)
+            for _ in range(2))
+    ks = vs = None
+    if kdt == torch.int8:
+        (k, ks), (v, vs) = _row_quantize(k), _row_quantize(v)
+    else:
+        k, v = k.to(kdt), v.to(kdt)
+    # every row's page ids in reverse order; -1 past its length
+    table = torch.arange(P - 1, P - 1 - B * MP, -1, dtype=torch.int32,
+                         device=dev).reshape(B, MP)
+    lengths = torch.tensor([1, ps, ps + 1, MP * ps][:B] + [MP * ps - 2]
+                           * max(0, B - 4), dtype=torch.int32, device=dev)
+    for b in range(B):
+        table[b, -(-int(lengths[b]) // ps):] = -1
+    return q, k, v, lengths, table, ks, vs
+
+
+@pytest.mark.parametrize("case", PAGED, ids=[str(c) for c in PAGED])
+@pytest.mark.parametrize("kdt", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16],
+                         ids=["q_fp32", "q_bf16"])
+def test_paged_attention_kernel_matches_plain(dev, case, kdt, qdt):
+    from emmax_torch.ops import paged_attention as pa
+
+    q, k, v, lengths, table, ks, vs = _paged_inputs(dev, case, qdt, kdt)
+    before = pa.KERNEL.launches
+    got = pa.paged_attention(q, k, v, lengths, table, k_scale=ks,
+                             v_scale=vs)
+    assert pa.KERNEL.launches == before + 1
+    want = pa.paged_attention_reference(q, k, v, lengths, table, k_scale=ks,
+                                        v_scale=vs)
+    assert got.dtype == qdt
+    _close(got, want, 1e-4 if qdt == torch.float32 else 2e-2)
+    # a rerun gives the same bits
+    assert torch.equal(pa.paged_attention(q, k, v, lengths, table,
+                                          k_scale=ks, v_scale=vs), got)
+
+
+def test_paged_attention_kernel_zero_length_row_and_checks(dev):
+    from emmax_torch.ops import paged_attention as pa
+
+    q, k, v, lengths, table, _, _ = _paged_inputs(
+        dev, PAGED[0], torch.float32, torch.float32)
+    lengths[0] = 0
+    assert not pa.paged_attention(q, k, v, lengths, table)[0].any()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pa.paged_attention_cuda(q[..., :12], k[..., :12], v[..., :12],
+                                lengths, table)
+    with pytest.raises(ValueError, match="int8 pages need"):
+        pa.paged_attention_cuda(q, k.to(torch.int8), v.to(torch.int8),
+                                lengths, table)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_attention_cuda(q, k, v, lengths.long(), table)

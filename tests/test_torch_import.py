@@ -38,8 +38,9 @@ def test_import_loads_no_jax():
             "emmax_torch.training.checkpointing",
             "emmax_torch.training.metrics", "emmax_torch.data.gcot",
             "emmax_torch.data.collators", "emmax_torch.data.prefetch",
-            "emmax_torch.conf.vla", "emmax_torch.conf.registry"} <= set(
-        MODULES)
+            "emmax_torch.conf.vla", "emmax_torch.conf.registry",
+            "emmax_torch.serving.continuous", "emmax_torch.serving.paged",
+            "emmax_torch.ops.paged_attention"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -76,16 +77,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from emmax_torch.serving.engine import ServingEngine
     from emmax_torch.vla.tokenizer import ByteLevelTokenizer
 
+    from emmax_torch.serving.continuous import ContinuousServingEngine
+    from emmax_torch.serving.paged import PagedServingEngine
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         emmax_torch.load_vla("tiny")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServingEngine(tiny_vlm_config(), {}, ByteLevelTokenizer())
+    for engine in (ServingEngine, ContinuousServingEngine,
+                   PagedServingEngine):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            engine(tiny_vlm_config(), {}, ByteLevelTokenizer())
 
 
 def test_kernel_wrappers_take_no_cpu_tensors():
     from emmax_torch.ops.flash_attention import flash_attention_cuda
     from emmax_torch.ops.int4_matmul import int4_matmul_cuda
+    from emmax_torch.ops.paged_attention import paged_attention_cuda
 
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -94,6 +101,11 @@ def test_kernel_wrappers_take_no_cpu_tensors():
         int4_matmul_cuda(torch.zeros(1, 64), torch.zeros(32, 8,
                                                          dtype=torch.int8),
                          torch.zeros(1, 8, dtype=torch.bfloat16))
+    pages = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_cuda(torch.zeros(1, 2, 16), pages, pages,
+                             torch.ones(1, dtype=torch.int32),
+                             torch.zeros(1, 2, dtype=torch.int32))
 
 
 def test_engine_rejects_weights_on_another_device():
