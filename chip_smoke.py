@@ -33,10 +33,12 @@ Phases, each raising on failure (the script then exits non-zero):
    each phase's device busy time, and each phase's bound;
 6. training kernels (in phase 3's call): the forward's LSE, dQ and dK/dV
    (separate and fused) against the plain backward at the Llama training
-   shape (B2, fused 448, H32, D128, causal, one row right-padded, bf16)
-   and the DINOv2 / SigLIP shapes (bidirectional, fp32), with device and
-   eager ms, bounds and ``scaled_dot_product_attention`` forward and
-   backward through autograd as the library time;
+   shape (B2, fused 448, H32, D128, causal, one row right-padded, bf16:
+   the tensor-core kernels) and the DINOv2 / SigLIP shapes
+   (bidirectional, fp32: the scalar kernels), with device and eager ms,
+   bounds and ``scaled_dot_product_attention`` forward and backward
+   through autograd as the library time; the bf16 backward kernels'
+   registers, spills and shared memory from the ``-Xptxas -v`` build log;
 7. ``align7b``: the full 7B (full width and depth) in the align stage
    (towers and Llama frozen, projector trained; B2, text 192 -> fused
    448; full remat; bf16 compute on fp32 master params; constant LR): one
@@ -45,7 +47,9 @@ Phases, each raising on failure (the script then exits non-zero):
    (dQ = dK/dV = 32; the forward twice per layer plus the towers' 49),
    then a few steps on one batch: step ms, tokens/s, peak memory, and
    the step's share of the bf16 peak by ``scripts/bench_train_step.py``'s
-   accounting;
+   accounting; then steps under ``attn_impl="cuda_fused"`` (the dK/dV
+   kernel's dQ partials, no dQ kernel; launches checked) and "cuda" in
+   turns, and one profiled fused step;
 8. the paged-attention kernel (in phase 3's call, so ``--kernels-only``
    runs it) against its plain version at the batched engines' shape (B6,
    H32, hd 128, page size 128, 6 pages per row, ragged lengths 1 / 127 /
@@ -84,8 +88,10 @@ entry per kernel; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -183,6 +189,62 @@ def bound_ms(n_bytes: float, flops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``tc::dkv_kernel<128, true>`` for a backward kernel's mangled name;
+    other names as they are."""
+    m = re.search(r"(tc|scalar)\d+(dq_kernel|dkv_kernel)ILi(\d+)E"
+                  r"(?:Lb([01])E)?", mangled)
+    if not m:
+        return mangled
+    ns, kern, dp, fused = m.groups()
+    flag = "" if fused is None else (", true" if fused == "1" else ", false")
+    return f"{ns}::{kern}<{dp}{flag}>"
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """Registers, spill bytes (stores + loads) and static shared memory of
+    each kernel, from nvcc's ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["registers"] = int(m.group(1))
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def bwd_resources(kernel) -> dict:
+    """The bf16 backward kernels at D 128 (the training shape): registers
+    per thread, spill bytes and shared memory per block (static from
+    ptxas, dynamic from ``emmax_flash_bwd_smem_bytes``)."""
+    usage = ptxas_usage(kernel.build_log)
+    f = ctypes.CDLL(str(kernel.library_path())).emmax_flash_bwd_smem_bytes
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_int
+    out = {}
+    for name, dkv, fused in (("tc::dq_kernel<128>", 0, 0),
+                             ("tc::dkv_kernel<128, false>", 1, 0),
+                             ("tc::dkv_kernel<128, true>", 1, 1)):
+        u = usage.get(name, {})
+        out[name] = {"registers": u.get("registers"),
+                     "spill_bytes": u.get("spill_bytes"),
+                     "smem_bytes": f(dkv, fused, 128)
+                     + u.get("static_smem", 0)}
+    return out
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
@@ -1033,8 +1095,9 @@ def align_batch(dev, pad_id: int):
 
 def profile_step(run, step_ms: float) -> dict:
     """One more train step under ``torch.profiler``: the kernels' summed
-    device time, its share of the unprofiled step time, and the kernels
-    that took the most of it. With no device events: not measured."""
+    device time, its share of the unprofiled step time, the attention
+    kernels' device ms, and the kernels that took the most of it. With no
+    device events: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1043,16 +1106,22 @@ def profile_step(run, step_ms: float) -> dict:
         run()
         torch.cuda.synchronize()
     by_name = {}
+    attn = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
-                                    + e.time_range.elapsed_us() / 1e3)
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+            for key, part in (("flash_fwd", "flash_fwd_kernel"),
+                              ("flash_bwd_dq", "::dq_kernel<"),
+                              ("flash_bwd_dkv", "::dkv_kernel<")):
+                if part in e.name:
+                    attn[key] += ms
     if not by_name:
         return {"device": "not measured"}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"device_ms": busy, "busy_share": busy / step_ms,
-            "top_kernels_ms": top}
+            "attention_ms": attn, "top_kernels_ms": top}
 
 
 def align7b_phase(dev, kernels):
@@ -1154,6 +1223,39 @@ def align7b_phase(dev, kernels):
     profile = profile_step(lambda: step(state, batch)[1]["loss"].item(),
                            step_s * 1e3)
     log("align7b profile " + json.dumps(profile))
+
+    # attn_impl="cuda_fused" beside the default "cuda": the dK/dV kernel
+    # writes the fp32 dQ partials and no dQ kernel runs. Steps of the two
+    # in turns (fused, cuda, cuda, fused, ...) on the same batch, then one
+    # profiled fused step.
+    step_fused = make_train_step(cfg, tx, attn_impl="cuda_fused", **common)
+    for k in kernels:
+        k.launches = 0
+    state, m = step_fused(state, batch)           # warm-up; counts one step
+    torch.cuda.synchronize(dev)
+    fused_launches = {k.name: k.launches for k in kernels}
+    if fused_launches != {**expected, "flash_bwd_dq": 0}:
+        raise AssertionError(f"align7b cuda_fused launches per step "
+                             f"{fused_launches}")
+    turns = {"cuda_fused": [], "cuda": []}
+    order = ["cuda_fused", "cuda", "cuda", "cuda_fused"] * ALIGN_STEPS
+    for key in order[:2 * ALIGN_STEPS]:
+        t0 = time.perf_counter()
+        state, m = (step_fused if key == "cuda_fused" else step)(state, batch)
+        loss = m["loss"].item()
+        turns[key].append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(loss):
+            raise AssertionError(f"align7b {key}: loss {loss}")
+    fused_med = float(np.median(turns["cuda_fused"]))
+    fused = {"launches_per_step": fused_launches,
+             **{f"{k}_step_ms": v for k, v in turns.items()},
+             **{f"{k}_step_ms_median": float(np.median(v))
+                for k, v in turns.items()},
+             "profile": profile_step(
+                 lambda: step_fused(state, batch)[1]["loss"].item(),
+                 fused_med)}
+    log("align7b cuda_fused " + json.dumps(fused))
+    del step_fused
     B, P = ALIGN_B, cfg.num_patches
     F = ALIGN_TEXT + P
     tok_llm, tok_vis = B * F, B * (P + 8)
@@ -1171,7 +1273,7 @@ def align7b_phase(dev, kernels):
            "parity": parity,
            "step_ms": times, "step_ms_median": step_s * 1e3,
            "tokens_per_s": tok_llm / step_s, "peak_gb": peak_gb,
-           "losses": losses, "profile": profile,
+           "losses": losses, "profile": profile, "fused_bwd": fused,
            "bound_ms": flops_hw / BF16_FLOPS_PER_S * 1e3,
            "mfu_6nd": flops_6nd / step_s / BF16_FLOPS_PER_S,
            "mfu_hw": flops_hw / step_s / BF16_FLOPS_PER_S}
@@ -1326,6 +1428,9 @@ def main(argv) -> int:
     log(f"built {secs} in {time.perf_counter() - t0:.1f} s (parallel)")
     for k in (fa.KERNEL, fa.DQ_KERNEL, int4_matmul.KERNEL, pa.KERNEL):
         log(f"--- nvcc {k.source}\n{k.build_log.strip()}")
+    log("flash_bwd.cu ptxas " + json.dumps(ptxas_usage(fa.DQ_KERNEL.build_log)))
+    bwd_res = bwd_resources(fa.DQ_KERNEL)
+    log("flash_bwd bf16 D128 resources " + json.dumps(bwd_res))
     flash, int4 = kernel_phase(dev)
     train_kernels = training_kernel_phase(dev)
     paged_kernels = paged_kernel_phase(dev)
@@ -1375,13 +1480,16 @@ def main(argv) -> int:
                        "launches_int4_path": q4["launches"]["flash_fwd"]}),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
-              launches_path="align7b train step"),
+              launches_path="align7b train step",
+              **bwd_res["tc::dq_kernel<128>"]),
         entry(by_name["flash_bwd_dkv"], fa.DKV_KERNEL,
               "emmax_tpu/ops/flash_attention.py:445",
               step["flash_bwd_dkv"], launches_path="align7b train step",
-              fused={k: by_name["flash_bwd_dkv_fused"][k] for k in
-                     ("ms", "max_abs_err", "bound_ms", "bound_by",
-                      "dq_partial_sum_ms")}),
+              **bwd_res["tc::dkv_kernel<128, false>"],
+              fused={**{k: by_name["flash_bwd_dkv_fused"][k] for k in
+                        ("ms", "eager_ms", "max_abs_err", "bound_ms",
+                         "bound_by", "dq_partial_sum_ms")},
+                     **bwd_res["tc::dkv_kernel<128, true>"]}),
         entry(int4[1], int4_matmul.KERNEL,
               "emmax_tpu/ops/int4_matmul.py:404",
               q4["launches"]["int4_matmul"],

@@ -11,7 +11,9 @@ projection (the towers) is passed without a copy:
 - ``csrc/flash_bwd.cu``: ``flash_bwd_dq`` (``_dq_kernel``) and
   ``flash_bwd_dkv`` (``_dkv_kernel``), the latter with the fused variant
   that also writes per-kv-tile fp32 dQ partials, summed here as JAX sums
-  them.
+  them. bf16 inputs run on the tensor cores (``mma.sync`` through
+  ``csrc/mma.cuh``; P is rounded to bf16 for dV = P^T dO, where the plain
+  version keeps it in fp32), fp32 inputs on scalar fp32 kernels.
 
 They handle the shapes of the serving and training paths: bidirectional
 ViT attention (DINOv2 D=64 over 261 tokens, SigLIP D=72 over 256 tokens;
@@ -51,7 +53,8 @@ DQ_KERNEL = CudaKernel("flash_bwd.cu", "emmax_flash_bwd_dq", _BWD_ARGS,
 DKV_KERNEL = CudaKernel("flash_bwd.cu", "emmax_flash_bwd_dkv", _BWD_ARGS,
                         name="flash_bwd_dkv")
 MAX_HEAD_DIM = 128
-BWD_KV_TILE = 64    # keys per dK/dV block: one fused dQ partial per tile
+BWD_KV_TILE = 64    # keys per dK/dV block, both dtypes: one fused dQ
+                    # partial per tile
 
 
 # ---------------------------------------------------------------- plain --

@@ -9,7 +9,11 @@ This file imports no JAX, so it runs where only PyTorch is installed
 Tolerances, relative to the largest |reference| value: 1e-4 in fp32 (the
 same inputs, sums in another order), 2e-2 in bf16 (the kernels keep fp32
 where the plain versions round to bf16). The LSE is held at 1e-5
-absolute (fp32 in both).
+absolute (fp32 in both). The bf16 flash backward runs on the tensor
+cores, which take P in bf16 for dV = P^T dO where the plain version (and
+JAX) keep it in fp32: one more relative rounding of at most 2^-9 per
+term, well inside 2e-2; every other product has bf16-exact operands and
+fp32 sums in both.
 """
 
 import numpy as np
@@ -108,6 +112,109 @@ def test_flash_backward_kernels_match_plain(dev, case, dtype):
                                             fused=fused, **kw)
         for a, b in zip(got, again):                # no atomics: the same
             assert torch.equal(a, b)                # bits every run
+
+
+# bf16 backward on the tensor cores: (B, Lq, S, H, D, causal, q_offset,
+# left pad, right pad of the last row, layout). Layouts: "qkv" views of one
+# fused projection, "contig" separate tensors, "odd" views of a buffer whose
+# rows are one element longer (D % 8 == 0 but rows not 16-byte aligned).
+BWD_TC = [
+    (2, 448, 448, 4, 128, True, 0, 0, 40, "qkv"),    # training, fewer heads
+    (2, 97, 161, 2, 128, True, 64, 0, 7, "contig"),  # rectangular q_offset
+    (1, 75, 75, 2, 128, True, 0, 0, 0, "odd"),
+    (2, 75, 75, 3, 72, True, 0, 5, 3, "qkv"),       # D 72 -> 80
+    (2, 70, 110, 2, 100, False, 0, 9, 0, "contig"),  # D 100 -> 112
+    (2, 33, 33, 2, 64, True, 0, 33, 0, "qkv"),      # row 0 sees no key
+]
+
+
+def _bwd_inputs(dev, case, seed=4):
+    B, Lq, S, H, D, causal, q_offset, lpad, rpad, layout = case
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    if layout == "qkv":
+        assert Lq == S
+        qkv = rnd(B, Lq, 3, H, D)
+        q, k, v = qkv.unbind(2)
+    elif layout == "odd":
+        assert Lq == S
+        buf = rnd(B, Lq, 3 * H * D + 1)
+        q, k, v = (buf[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D))
+                   for i in range(3))
+    else:
+        q, k, v = rnd(B, Lq, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+    do = rnd(B, Lq, H, D)
+    mask = None
+    if lpad or rpad:
+        mask = torch.ones(B, S, dtype=torch.bool, device=dev)
+        mask[0, :lpad] = False
+        mask[-1, S - rpad:] = False
+    kw = dict(kv_mask=mask, causal=causal, q_offset=q_offset)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("case", BWD_TC, ids=[str(c) for c in BWD_TC])
+def test_flash_backward_tensor_cores_match_plain(dev, case):
+    """The bf16 tensor-core dQ and dK/dV (separate and fused) against the
+    plain backward: ragged tiles, padded D, misaligned rows, strided views,
+    rectangular causal offsets; exact zeros for rows that see no key and
+    keys no query sees; the same bits on a rerun."""
+    from emmax_torch.ops import flash_attention as fa
+
+    q, k, v, do, kw = _bwd_inputs(dev, case)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    di = (out.float() * do.float()).sum(-1)
+    want = fa.flash_attention_bwd_reference(q, k, v, do, lse, di, **kw)
+    B, Lq, S = q.shape[0], q.shape[1], k.shape[1]
+    dense = fa._dense_mask(Lq, S, kw["kv_mask"], kw["causal"],
+                           kw["q_offset"], dev)
+    dense = (torch.ones(1, 1, Lq, S, dtype=torch.bool, device=dev)
+             if dense is None else dense).expand(B, 1, Lq, S)[:, 0]
+    dead_q, dead_k = ~dense.any(dim=2), ~dense.any(dim=1)
+    for fused in (False, True):
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di, fused=fused,
+                                          **kw)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16
+            _close(a, b, 2e-2)
+        dq, dk, dv = got
+        assert not dq[dead_q].any() and not dk[dead_k].any()
+        assert not dv[dead_k].any()
+        again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di,
+                                            fused=fused, **kw)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_dq_partials_one_per_kv_tile(dev, dtype):
+    """The fused dK/dV kernel writes ceil(S / BWD_KV_TILE) fp32 partials,
+    exact zeros where a kv tile sees none of a row's keys (causal), and
+    their sum is the separate kernel's dQ up to its bf16 rounding."""
+    from emmax_torch.ops import flash_attention as fa
+
+    B, Lq, S, H, D, q_offset = 2, 150, 200, 2, 128, 50
+    g = torch.Generator(dev).manual_seed(5)
+    q, do = (torch.randn(B, Lq, H, D, device=dev, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=True, q_offset=q_offset)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    di = (out.float() * do.float()).sum(-1)
+    (args, _keep), (_, _, _, part) = fa.bwd_launch_args(
+        q, k, v, do, lse, di, fused=True, **kw)
+    fa.DKV_KERNEL.launch(*args)
+    n_tiles = -(-S // fa.BWD_KV_TILE)
+    assert part.shape == (n_tiles, B, Lq, H, D) and part.dtype == torch.float32
+    for j in range(1, n_tiles):   # rows before the tile's first key
+        first_row = j * fa.BWD_KV_TILE - q_offset
+        assert not part[j, :, :first_row].any()
+    dq = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di, **kw)[0]
+    _close(part.sum(dim=0), dq, 1e-4 if dtype == torch.float32 else 1e-2)
 
 
 def test_autograd_function_launches_the_backward_kernels(dev):

@@ -9,12 +9,20 @@ dK/dV kernels through the Pallas interpreter, as
 autograd ``FlashAttention`` (its CPU path: the plain forward, LSE and
 backward) and the plain backward called directly. Tolerance: 1e-5 (fp32,
 sums in another order), relative to the largest |reference| value.
+
+The bf16 kernels on the card round once more than JAX: the tensor cores
+take P in bf16 for dV = P^T dO. A numpy emulation of their roundings
+(bf16 inputs, the forward's bf16 output for di, dS and P rounded to bf16
+before their products, fp32 sums, bf16 outputs) is held to ``jax.grad``
+and to the plain backward in bf16 at ``BF16_RTOL``, the card tests'
+tolerance.
 """
 
 import functools
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -23,6 +31,7 @@ from emmax_torch.ops import flash_attention as t_flash
 from emmax_tpu.ops import flash_attention as j_flash
 
 TOL = 1e-5
+BF16_RTOL = 2e-2
 
 
 def _close(got, want, tol=TOL):
@@ -153,3 +162,84 @@ def test_decode_queries_keep_the_plain_path_under_autograd():
     want = _jax_grads(q, k, v, do, mask, True, 16, False)
     (out * torch.from_numpy(do)).sum().backward()
     _close(tq.grad.numpy(), want[0])
+
+
+def _bf16(a):
+    """fp32 values rounded to bf16 (round to nearest even), kept fp32."""
+    return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16).astype(
+        np.float32)
+
+
+def _tensor_core_grads(q, k, v, do, mask, causal):
+    """numpy emulation of the bf16 tensor-core backward on bf16 inputs
+    [B, L, H, D]: the forward's output rounded to bf16 for ``di``;
+    ``p = exp(s - lse)``, exactly 0 where masked; dS rounded to bf16 for
+    dQ and dK, P rounded to bf16 for dV; fp32 sums; bf16 outputs."""
+    B, L, H, D = q.shape
+    scale = np.float32(D ** -0.5)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    vis = np.ones((B, 1, L, L), bool)
+    if mask is not None:
+        vis &= mask[:, None, None, :]
+    if causal:
+        vis &= np.tril(np.ones((L, L), bool))
+    m = np.where(vis, s, -np.inf).max(-1, keepdims=True)
+    m = np.where(np.isfinite(m), m, 0.0)
+    e = np.where(vis, np.exp(s - m), 0.0)
+    l = e.sum(-1, keepdims=True)
+    lse = m + np.log(np.where(l == 0, 1.0, l))
+    p = np.where(vis, np.exp(s - lse), 0.0).astype(np.float32)
+    out = _bf16(np.einsum("bhqk,bkhd->bqhd", p, v))
+    di = (out * do).sum(-1).transpose(0, 2, 1)[..., None]      # [B, H, L, 1]
+    dp = np.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = _bf16(p * (dp - di) * scale)
+    dq = np.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = np.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = np.einsum("bhqk,bqhd->bkhd", _bf16(p), do)
+    return [_bf16(g) for g in (dq, dk, dv)]
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_case():
+    """bf16 inputs at D 128 over 197 causal tokens (row 0 left-padded by
+    3 slots, row 1 right-padded by 20) and their emulated gradients."""
+    q, k, v, do, _ = _inputs(11, 2, 197, 197, 2, 128, 0)
+    q, k, v, do = (_bf16(a) for a in (q, k, v, do))
+    mask = np.ones((2, 197), bool)
+    mask[0, :3] = False
+    mask[1, -20:] = False
+    return (q, k, v, do), mask, _tensor_core_grads(q, k, v, do, mask, True)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["separate", "fused"])
+def test_tensor_core_rounding_matches_jax_grad_in_bf16(fused):
+    """The kernels' roundings against ``jax.grad`` through the Pallas
+    backward (interpret mode) on the same bf16 inputs."""
+    (q, k, v, do), mask, emul = _bf16_case()
+
+    def f(q, k, v):
+        out = j_flash.flash_attention(q, k, v, kv_mask=jnp.asarray(mask),
+                                      causal=True, fused_bwd=fused)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    for got, ref in zip(emul, want):
+        _close(got, np.asarray(ref.astype(jnp.float32)), BF16_RTOL)
+
+
+def test_tensor_core_rounding_matches_plain_backward_in_bf16():
+    """The kernels' roundings against the port's plain backward in bf16
+    (the version the card tests hold the kernels to)."""
+    (q, k, v, do), mask, emul = _bf16_case()
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (q, k, v, do))
+    kw = dict(kv_mask=torch.from_numpy(mask), causal=True)
+    out = t_flash.flash_attention_reference(tq, tk, tv, **kw)
+    lse = t_flash.flash_lse_reference(tq, tk, **kw)
+    di = (out.float() * tdo.float()).sum(-1)
+    got = t_flash.flash_attention_bwd_reference(tq, tk, tv, tdo, lse, di,
+                                                **kw)
+    for ref, g in zip(emul, got):
+        assert g.dtype == torch.bfloat16
+        _close(ref, g.float().numpy(), BF16_RTOL)
