@@ -11,10 +11,13 @@ Phases, each raising on failure (the script then exits non-zero):
    (one ``nvcc`` per source, started together);
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes: flash-attention forward for DINOv2, SigLIP and the Llama
-   prefill (left-padded, into the whole cache); int4 matmul at M = 1 and
-   M = prefill length for every Llama-2-7B weight shape, through the
-   stacked view. Each in the dtype the main path gives it (the towers
-   run in fp32, as in JAX; the decoder in bf16). Max error against the
+   prefill (left-padded, into the whole cache) and the Llama training
+   shape; int4 matmul at M = 1, 6, 48 and the prefill length for every
+   Llama-2-7B weight shape, through the stacked view. bf16 runs the
+   tensor-core kernels (exact zeros and the LSE sentinel on rows that see
+   no key, the same bits on a rerun), fp32 the scalar ones. Each is timed
+   in the dtype the main path gives it (the towers run in fp32, as in
+   JAX; the decoder in bf16). Max error against the
    stated tolerance; kernel, plain and library
    (``scaled_dot_product_attention``; ``torch._weight_int4pack_mm`` on
    the weight repacked outside the timed calls) device times from CUDA
@@ -37,8 +40,9 @@ Phases, each raising on failure (the script then exits non-zero):
    the tensor-core kernels) and the DINOv2 / SigLIP shapes
    (bidirectional, fp32: the scalar kernels), with device and eager ms,
    bounds and ``scaled_dot_product_attention`` forward and backward
-   through autograd as the library time; the bf16 backward kernels'
-   registers, spills and shared memory from the ``-Xptxas -v`` build log;
+   through autograd as the library time; the bf16 tensor-core kernels'
+   (forward, backward, int4) registers, spills and shared memory from the
+   ``-Xptxas -v`` build log and the sources' ``*_smem_bytes`` entries;
 7. ``align7b``: the full 7B (full width and depth) in the align stage
    (towers and Llama frozen, projector trained; B2, text 192 -> fused
    448; full remat; bf16 compute on fp32 master params; constant LR): one
@@ -107,9 +111,12 @@ TASK = "put the carrot in the pot"
 MAX_NEW = 64
 REQUESTS = 3                   # timed requests per path, after one warm-up
 PROFILE_TOKENS = 16            # the profiled request's max_new_tokens
-# bf16: the kernel keeps P in fp32 where the plain version rounds it to bf16
-# (flash) or rounds dequantized weights to bf16 (int4); both round the
-# output to bf16. Held relative to the largest |reference| value.
+# bf16: kernel and plain version round at different places: the flash
+# forward rounds each tile's unnormalised P, the plain version the
+# normalised probabilities; the backward takes P in bf16 for dV where the
+# plain version keeps it in fp32; the plain int4 rounds the dequantized
+# weight to bf16, the kernel does not. Both round the output to bf16.
+# Held relative to the largest |reference| value.
 BF16_RTOL = 2e-2
 FP32_RTOL = 1e-4               # the same inputs in fp32: summation order only
 # align7b (scripts/bench_train_step.py --config align7b): batch 2, text
@@ -192,10 +199,16 @@ def bound_ms(n_bytes: float, flops: float,
 
 
 def _kernel_name(mangled: str) -> str:
-    """``tc::dkv_kernel<128, true>`` for a backward kernel's mangled name;
-    other names as they are."""
-    m = re.search(r"(tc|scalar)\d+(dq_kernel|dkv_kernel)ILi(\d+)E"
-                  r"(?:Lb([01])E)?", mangled)
+    """``tc::dkv_kernel<128, true>`` (or ``tc::int4_tc_kernel<8, 1, 4,
+    true>``) for a tensor-core kernel's mangled name; other names as they
+    are."""
+    m = re.search(r"tc\d+int4_tc_kernelI((?:L[ib]\d+E)+)E", mangled)
+    if m:
+        args = [v if k == "i" else ("true" if v == "1" else "false")
+                for k, v in re.findall(r"L([ib])(\d+)E", m.group(1))]
+        return f"tc::int4_tc_kernel<{', '.join(args)}>"
+    m = re.search(r"(tc|scalar)\d+(dq_kernel|dkv_kernel|fwd_kernel)"
+                  r"ILi(\d+)E(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
     ns, kern, dp, fused = m.groups()
@@ -227,23 +240,20 @@ def ptxas_usage(build_log: str) -> dict:
     return out
 
 
-def bwd_resources(kernel) -> dict:
-    """The bf16 backward kernels at D 128 (the training shape): registers
-    per thread, spill bytes and shared memory per block (static from
-    ptxas, dynamic from ``emmax_flash_bwd_smem_bytes``)."""
+def kernel_resources(kernel, smem_symbol: str, entries: dict) -> dict:
+    """Registers per thread, spill bytes and shared memory per block
+    (static from ptxas, dynamic from the source's ``smem_symbol`` entry
+    point called with the entry's arguments) of each named kernel."""
     usage = ptxas_usage(kernel.build_log)
-    f = ctypes.CDLL(str(kernel.library_path())).emmax_flash_bwd_smem_bytes
-    f.argtypes = [ctypes.c_int] * 3
+    f = getattr(ctypes.CDLL(str(kernel.library_path())), smem_symbol)
     f.restype = ctypes.c_int
     out = {}
-    for name, dkv, fused in (("tc::dq_kernel<128>", 0, 0),
-                             ("tc::dkv_kernel<128, false>", 1, 0),
-                             ("tc::dkv_kernel<128, true>", 1, 1)):
+    for name, args in entries.items():
         u = usage.get(name, {})
+        f.argtypes = [ctypes.c_int] * len(args)
         out[name] = {"registers": u.get("registers"),
                      "spill_bytes": u.get("spill_bytes"),
-                     "smem_bytes": f(dkv, fused, 128)
-                     + u.get("static_smem", 0)}
+                     "smem_bytes": f(*args) + u.get("static_smem", 0)}
     return out
 
 
@@ -265,10 +275,16 @@ def prefill_shape(tokenizer, num_patches: int) -> tuple:
 
 # ----------------------------------------------------------------- kernels --
 
-def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype):
-    """Kernel vs plain at one shape in fp32 and in bf16; ``n_pad`` left-pad
-    slots (kv_mask). Timed in ``dtype``, the one the main path gives it."""
+def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype,
+                rpad=0):
+    """Kernel vs plain at one shape in fp32 (the scalar kernel) and in bf16
+    (the tensor-core kernel); ``n_pad`` left-pad slots in every row and
+    ``rpad`` right-pad slots in the last (kv_mask). Query rows that see no
+    key must be exact zeros with the LSE sentinel bit for bit, and a
+    rerun must give the same bits. Timed in ``dtype``, the one the main
+    path gives it."""
     from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops.attention import NEG_INF
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     def rnd(*shape):
@@ -276,17 +292,28 @@ def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype):
 
     qkv32 = (rnd(B, Lq, H, D), rnd(B, S, H, D), rnd(B, S, H, D))
     kv_mask = None
-    if n_pad or S != Lq:
+    if n_pad or rpad or S != Lq:
         kv_mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
         kv_mask[:, n_pad:Lq] = True           # the slots the prefill wrote
+        if rpad:
+            kv_mask[-1, Lq - rpad:] = False
     kw = dict(kv_mask=kv_mask, causal=causal, q_offset=0)
+    dense = fa._dense_mask(Lq, S, kv_mask, causal, 0, dev)
+    dead = (~dense.any(dim=-1)[:, 0]).expand(B, Lq) if dense is not None \
+        else torch.zeros((B, Lq), dtype=torch.bool, device=dev)
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (t.to(dt) for t in qkv32)
-        got = fa.flash_attention_cuda(q, k, v, **kw)
+        got, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        again, lse2 = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         errs[dt] = rel_err(got, fa.flash_attention_reference(q, k, v, **kw))
-        if n_pad and causal and got[:, :n_pad].abs().max().item() != 0.0:
-            raise AssertionError(f"flash {name}: pad query rows are not zero")
+        if not (torch.equal(got, again) and torch.equal(lse, lse2)):
+            raise AssertionError(f"flash {name} {dt}: a rerun changed bits")
+        if got[dead].any() or not bool((lse[dead] == NEG_INF).all()):
+            raise AssertionError(f"flash {name} {dt}: rows that see no key "
+                                 f"are not exact zeros with the sentinel")
+        if n_pad and causal and not dead[:, :n_pad].all():
+            raise AssertionError(f"flash {name}: pad rows see a key")
     rel32, rel = errs[torch.float32][1], errs[torch.bfloat16][1]
     if not (rel32 <= FP32_RTOL and rel <= BF16_RTOL):
         raise AssertionError(f"flash {name}: rel err fp32 {rel32:.3g} "
@@ -295,7 +322,6 @@ def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype):
     q, k, v = (t.to(dtype) for t in qkv32)
     ms, eager = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
     plain, _ = time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw))
-    dense = fa._dense_mask(Lq, S, kv_mask, causal, 0, dev)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib, _ = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dense))
     pairs = (dense.expand(B, 1, Lq, S).sum().item() if dense is not None
@@ -309,7 +335,7 @@ def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype):
             "max_abs_err": errs[dtype][0], "rel_err": rel,
             "fp32_rel_err": rel32, "ms": ms, "eager_ms": eager,
             "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "dead_rows": int(dead.sum().item())}
 
 
 def tinygemm_weight(q4: torch.Tensor, scale: torch.Tensor) -> tuple:
@@ -327,11 +353,13 @@ def tinygemm_weight(q4: torch.Tensor, scale: torch.Tensor) -> tuple:
 
 
 def check_int4(dev, gen, name, M, D, F, layers=8):
-    """Kernel vs plain at one shape on layer 1 of a stacked weight; timed
-    over ``layers`` stacked layers in turn, so the weights come from HBM
-    (the stack is larger than the 50 MB L2) as in the decode loop. The
-    library call is held against the plain version too, and timed the
-    same way on the same weights repacked beforehand."""
+    """Kernel vs plain at one shape on layer 1 of a stacked weight: fp32 x
+    (the scalar kernel) at FP32_RTOL, bf16 x (the tensor-core kernel) at
+    BF16_RTOL and the same bits on a rerun. Timed in bf16 over ``layers``
+    stacked layers in turn, so the weights come from HBM (the stack is
+    larger than the 50 MB L2) as in the decode loop. The library call is
+    held against the plain version too, and timed the same way on the same
+    weights repacked beforehand."""
     from emmax_torch.ops import int4_matmul as im
 
     group = 128
@@ -344,7 +372,10 @@ def check_int4(dev, gen, name, M, D, F, layers=8):
     got32 = im.int4_matmul_cuda(x32, q4[1], scale[1])
     _, rel32 = rel_err(got32, im.int4_matmul_reference(x32, q4[1], scale[1]))
     ref = im.int4_matmul_reference(x, q4[1], scale[1])
-    err, rel = rel_err(im.int4_matmul_cuda(x, q4[1], scale[1]), ref)
+    got = im.int4_matmul_cuda(x, q4[1], scale[1])
+    err, rel = rel_err(got, ref)
+    if not torch.equal(im.int4_matmul_cuda(x, q4[1], scale[1]), got):
+        raise AssertionError(f"int4 {name}: a rerun changed bits")
     packs = [tinygemm_weight(q4[i], scale[i]) for i in range(layers)]
     _, lib_rel = rel_err(torch._weight_int4pack_mm(x, packs[1][0], group,
                                                    packs[1][1]), ref)
@@ -390,6 +421,7 @@ def kernel_phase(dev):
     gen.manual_seed(0)
     (_, dino), (_, sig) = cfg.vision
     llm = cfg.llm
+    F = cfg.num_patches + ALIGN_TEXT          # the align7b fused length
     flash = [
         check_flash(dev, gen, f"dino B1 L{dino.num_patches + dino.num_prefix}"
                     f" H{dino.n_heads} D{dino.head_dim}", 1,
@@ -404,12 +436,18 @@ def kernel_phase(dev):
                     f" D{llm.head_dim} causal pad{bucket - n_tok}", 1, Lq, S,
                     llm.n_heads, llm.head_dim, True, bucket - n_tok,
                     torch.bfloat16),
+        check_flash(dev, gen, f"llama train B{ALIGN_B} L{F} H{llm.n_heads}"
+                    f" D{llm.head_dim} causal rpad{ALIGN_PAD}", ALIGN_B, F,
+                    F, llm.n_heads, llm.head_dim, True, 0, torch.bfloat16,
+                    rpad=ALIGN_PAD),
     ]
     D, Fh, V = llm.dim, llm.hidden_dim, llm.vocab_size
     shapes = [("wq/wk/wv/wo", D, D), ("w_gate/w_up", D, Fh),
               ("w_down", Fh, D), ("lm_head", D, V)]
+    # M 1: decode; 6: the batched engines' slots; 48: the speculative tree
+    # verify's upper bound; Lq: prefill
     int4 = [check_int4(dev, gen, f"{n} M{M} D{d} F{f}", M, d, f)
-            for M in (1, Lq) for n, d, f in shapes]
+            for M in (1, 6, 48, Lq) for n, d, f in shapes]
     for r in flash + int4:
         log("kernel " + json.dumps(r))
     return flash, int4
@@ -1106,16 +1144,21 @@ def profile_step(run, step_ms: float) -> dict:
         run()
         torch.cuda.synchronize()
     by_name = {}
-    attn = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    # the forward's bf16 tensor-core kernel (the Llama) and fp32 scalar
+    # kernel (the towers), and the two backward kernels
+    parts = (("flash_fwd_bf16", "::fwd_kernel<"),
+             ("flash_fwd_fp32", "flash_fwd_kernel<"),
+             ("flash_bwd_dq", "::dq_kernel<"),
+             ("flash_bwd_dkv", "::dkv_kernel<"))
+    attn = {key: 0.0 for key, _ in parts}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms = e.time_range.elapsed_us() / 1e3
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
-            for key, part in (("flash_fwd", "flash_fwd_kernel"),
-                              ("flash_bwd_dq", "::dq_kernel<"),
-                              ("flash_bwd_dkv", "::dkv_kernel<")):
+            for key, part in parts:
                 if part in e.name:
                     attn[key] += ms
+    attn["flash_fwd"] = attn["flash_fwd_bf16"] + attn["flash_fwd_fp32"]
     if not by_name:
         return {"device": "not measured"}
     busy = sum(by_name.values())
@@ -1429,8 +1472,23 @@ def main(argv) -> int:
     for k in (fa.KERNEL, fa.DQ_KERNEL, int4_matmul.KERNEL, pa.KERNEL):
         log(f"--- nvcc {k.source}\n{k.build_log.strip()}")
     log("flash_bwd.cu ptxas " + json.dumps(ptxas_usage(fa.DQ_KERNEL.build_log)))
-    bwd_res = bwd_resources(fa.DQ_KERNEL)
+    # the bf16 tensor-core kernels at D 128 (the training shape) and the
+    # int4 kernels as built (<columns a lane, x tiles, stages, vector
+    # copies>; 8 rows of x per warp for one x tile, else 32)
+    bwd_res = kernel_resources(fa.DQ_KERNEL, "emmax_flash_bwd_smem_bytes", {
+        "tc::dq_kernel<128>": (0, 0, 128),
+        "tc::dkv_kernel<128, false>": (1, 0, 128),
+        "tc::dkv_kernel<128, true>": (1, 1, 128)})
     log("flash_bwd bf16 D128 resources " + json.dumps(bwd_res))
+    fwd_res = kernel_resources(fa.KERNEL, "emmax_flash_fwd_smem_bytes",
+                               {"tc::fwd_kernel<128>": (128,)})
+    log("flash_fwd bf16 D128 resources " + json.dumps(fwd_res))
+    int4_res = kernel_resources(
+        int4_matmul.KERNEL, "emmax_int4_matmul_smem_bytes",
+        {name: (8 * int(name.split(", ")[1]),)
+         for name in ptxas_usage(int4_matmul.KERNEL.build_log)
+         if name.startswith("tc::int4_tc_kernel<")})
+    log("int4_matmul bf16 resources " + json.dumps(int4_res))
     flash, int4 = kernel_phase(dev)
     train_kernels = training_kernel_phase(dev)
     paged_kernels = paged_kernel_phase(dev)
@@ -1468,11 +1526,12 @@ def main(argv) -> int:
 
     by_name = {r["name"]: r for r in train_kernels[:4]}   # Llama training
     step = align["launches_per_step"]
-    prefill = flash[-1]                       # the Llama prefill shape
+    prefill = flash[2]                        # the Llama prefill shape
     entries = [
         entry(by_name["flash_fwd_lse"], fa.KERNEL,
               "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
               launches_path="align7b train step",
+              **fwd_res["tc::fwd_kernel<128>"],
               serving={"shape": prefill["shape"], "ms": prefill["ms"],
                        "plain_ms": prefill["plain_ms"],
                        "library_ms": prefill["library_ms"],
@@ -1493,7 +1552,12 @@ def main(argv) -> int:
         entry(int4[1], int4_matmul.KERNEL,
               "emmax_tpu/ops/int4_matmul.py:404",
               q4["launches"]["int4_matmul"],
-              launches_path="int4 serving requests"),
+              launches_path="int4 serving requests",
+              resources=int4_res,
+              shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")}
+                      for r in int4]),
         entry(paged_kernels[1], pa.KERNEL, "emmax_tpu/serving/paged.py:362",
               batched["paged kernel int8"]["launches"]["paged_attention"],
               launches_path="full-width paged kernel run (int8 pages), "

@@ -58,6 +58,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -468,14 +469,17 @@ cudaError_t dispatch(const Args& a, bool dkv, bool fused, cudaStream_t s) {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-using emmax::mma::cp_async_16;
 using emmax::mma::cp_async_commit;
 using emmax::mma::cp_async_wait;
-using emmax::mma::ldmatrix_x4;
 using emmax::mma::ldmatrix_x4_trans;
 using emmax::mma::mma_16816;
 using emmax::mma::pack_bf16;
-using emmax::mma::swizzle;
+using emmax::tc::key_ok;
+using emmax::tc::load_a;
+using emmax::tc::load_b;
+using emmax::tc::load_bt;
+using emmax::tc::load_tile;
+using emmax::tc::row_len;
 
 constexpr int NW = 4;            // warps per block
 constexpr int NTH = 32 * NW;     // threads per block
@@ -486,73 +490,6 @@ constexpr int KV_BQ = 32;        // dK/dV: query rows per stage
 constexpr int DS_LD = KV_BQ + 8; // dS^T rows in shared: 80 bytes, so the
                                  // 8 rows of an ldmatrix hit 8 bank groups
 constexpr float LOG2E = 1.4426950408889634f;
-
-// shared row length (elements) of a tile padded to DP: whole 128-byte
-// groups, the unit of the swizzle
-template <int DP>
-__host__ __device__ constexpr int row_len() {
-  return (DP + 63) / 64 * 64;
-}
-
-// rows [r0, r0 + R) of a [rows, D] bf16 slice -> swizzled shared
-// [R][row_len<DP>()], zero past `rows` and in columns D..DP. With `vec`
-// (D % 8 == 0, 16-byte aligned rows) one cp.async per 16 bytes; otherwise
-// element loads.
-template <int R, int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int r0,
-                                          int rows, int D, bool vec) {
-  constexpr int ROW = row_len<DP>();
-  constexpr int CH = DP / 8;
-  if (vec) {
-    for (int i = threadIdx.x; i < R * CH; i += NTH) {
-      const int r = i / CH, c = i - (i / CH) * CH;
-      const bool in = r0 + r < rows && c * 8 < D;
-      cp_async_16(dst + swizzle<ROW>(r, c),
-                  in ? src + (r0 + r) * row_stride + c * 8 : src, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DP; i += NTH) {
-      const int r = i / DP, d = i - (i / DP) * DP;
-      bf16 val = __float2bfloat16(0.f);
-      if (r0 + r < rows && d < D) val = src[(r0 + r) * row_stride + d];
-      dst[swizzle<ROW>(r, d >> 3) + (d & 7)] = val;
-    }
-  }
-}
-
-__device__ __forceinline__ uint8_t key_ok(const Args& a, const uint8_t* mb,
-                                          int kj) {
-  return kj < a.S && (!mb || mb[kj] != 0);
-}
-
-// the [16 x 16] A fragment of rows r0.. of a swizzled tile, k-step kk
-template <int ROW>
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile,
-                                       int r0, int kk, int lane) {
-  ldmatrix_x4(r, tile + swizzle<ROW>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                     2 * kk + (lane >> 4)));
-}
-
-// B fragments of two neighbouring n-tiles (rows n0.., n0 + 8..) of a
-// swizzled row-major [n][k] tile, k-step kk: r[0..1] n-tile n0, r[2..3]
-// n-tile n0 + 8
-template <int ROW>
-__device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* tile,
-                                       int n0, int kk, int lane) {
-  ldmatrix_x4(r, tile + swizzle<ROW>(n0 + (lane & 7) + (lane >> 4) * 8,
-                                     2 * kk + ((lane >> 3) & 1)));
-}
-
-// B fragments of d-chunks 2*np and 2*np + 1 from a swizzled row-major
-// [k][d] tile (k rows k0..k0 + 15) through ldmatrix.trans
-template <int ROW>
-__device__ __forceinline__ void load_bt(uint32_t (&r)[4], const bf16* tile,
-                                        int k0, int np, int lane) {
-  ldmatrix_x4_trans(r, tile + swizzle<ROW>(
-                           k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                           2 * np + (lane >> 4)));
-}
 
 template <int DP>
 constexpr int dq_smem_bytes() {
@@ -595,12 +532,12 @@ __global__ void __launch_bounds__(NTH) dq_kernel(Args a) {
   if (a.causal) kv_end = min(a.S, a.q_offset + min(q0 + DQ_BQ, a.Lq));
   const int n_kt = (kv_end + DQ_BK - 1) / DQ_BK;
 
-  load_tile<DQ_BQ, DP>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
-  load_tile<DQ_BQ, DP>(dOs, ob, st[10], q0, a.Lq, a.D, vec);
+  load_tile<DQ_BQ, DP, NTH>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
+  load_tile<DQ_BQ, DP, NTH>(dOs, ob, st[10], q0, a.Lq, a.D, vec);
   if (n_kt > 0) {
-    load_tile<DQ_BK, DP>(Ks, kb, st[4], 0, a.S, a.D, vec);
-    load_tile<DQ_BK, DP>(Vs, vb, st[7], 0, a.S, a.D, vec);
-    if (tid < DQ_BK) ms[tid] = key_ok(a, mb, tid);
+    load_tile<DQ_BK, DP, NTH>(Ks, kb, st[4], 0, a.S, a.D, vec);
+    load_tile<DQ_BK, DP, NTH>(Vs, vb, st[7], 0, a.S, a.D, vec);
+    if (tid < DQ_BK) ms[tid] = key_ok(a.S, mb, tid);
   }
   cp_async_commit();
 
@@ -630,9 +567,11 @@ __global__ void __launch_bounds__(NTH) dq_kernel(Args a) {
     uint8_t m_next = 0;
     if (it + 1 < n_kt) {
       const int nb = (buf ^ 1) * DQ_BK * ROW;
-      load_tile<DQ_BK, DP>(Ks + nb, kb, st[4], k0 + DQ_BK, a.S, a.D, vec);
-      load_tile<DQ_BK, DP>(Vs + nb, vb, st[7], k0 + DQ_BK, a.S, a.D, vec);
-      if (tid < DQ_BK) m_next = key_ok(a, mb, k0 + DQ_BK + tid);
+      load_tile<DQ_BK, DP, NTH>(Ks + nb, kb, st[4], k0 + DQ_BK, a.S, a.D,
+                                vec);
+      load_tile<DQ_BK, DP, NTH>(Vs + nb, vb, st[7], k0 + DQ_BK, a.S, a.D,
+                                vec);
+      if (tid < DQ_BK) m_next = key_ok(a.S, mb, k0 + DQ_BK + tid);
     }
     cp_async_commit();
     const bf16* Kt = Ks + buf * DQ_BK * ROW;
@@ -751,13 +690,13 @@ __global__ void __launch_bounds__(NTH) dkv_kernel(Args a) {
     }
   }
 
-  load_tile<KV_BK, DP>(Ks, kb, st[4], k0, a.S, a.D, vec);
-  load_tile<KV_BK, DP>(Vs, vb, st[7], k0, a.S, a.D, vec);
-  if (tid < KV_BK) km[tid] = key_ok(a, mb, k0 + tid);
+  load_tile<KV_BK, DP, NTH>(Ks, kb, st[4], k0, a.S, a.D, vec);
+  load_tile<KV_BK, DP, NTH>(Vs, vb, st[7], k0, a.S, a.D, vec);
+  if (tid < KV_BK) km[tid] = key_ok(a.S, mb, k0 + tid);
   if (qt_start < n_qt) {
     const int q0 = qt_start * KV_BQ;
-    load_tile<KV_BQ, DP>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
-    load_tile<KV_BQ, DP>(dOs, ob, st[10], q0, a.Lq, a.D, vec);
+    load_tile<KV_BQ, DP, NTH>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
+    load_tile<KV_BQ, DP, NTH>(dOs, ob, st[10], q0, a.Lq, a.D, vec);
     if (tid < KV_BQ) {
       const bool in = q0 + tid < a.Lq;
       const long long at = ((long long)b * a.Lq + q0 + tid) * a.H + h;
@@ -782,8 +721,8 @@ __global__ void __launch_bounds__(NTH) dkv_kernel(Args a) {
     float lse_next = 0.f, di_next = 0.f;
     if (qt + 1 < n_qt) {
       const int nb = (buf ^ 1) * KV_BQ * ROW, q1 = q0 + KV_BQ;
-      load_tile<KV_BQ, DP>(Qs + nb, qb, st[1], q1, a.Lq, a.D, vec);
-      load_tile<KV_BQ, DP>(dOs + nb, ob, st[10], q1, a.Lq, a.D, vec);
+      load_tile<KV_BQ, DP, NTH>(Qs + nb, qb, st[1], q1, a.Lq, a.D, vec);
+      load_tile<KV_BQ, DP, NTH>(dOs + nb, ob, st[10], q1, a.Lq, a.D, vec);
       if (tid < KV_BQ && q1 + tid < a.Lq) {
         const long long at = ((long long)b * a.Lq + q1 + tid) * a.H + h;
         lse_next = a.lse[at] * LOG2E;
@@ -979,18 +918,6 @@ cudaError_t dispatch(const Args& a, bool dkv, bool fused, cudaStream_t s) {
 
 }  // namespace tc
 
-// 16-byte loads need D % 8 == 0 and every row of q, k, v and do to start
-// on a 16-byte boundary
-bool rows_16b(const Args& a) {
-  if (a.D % 8) return false;
-  for (int i = 0; i < 12; ++i)
-    if (a.st[i] % 8) return false;
-  const void* base[4] = {a.q, a.k, a.v, a.dout};
-  for (const void* p : base)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
 int entry(bool dkv, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* di,
           const void* kv_mask, void* dq, void* dk, void* dv, void* dq_part,
@@ -1018,7 +945,7 @@ int entry(bool dkv, const void* q, const void* k, const void* v,
   a.causal = causal;
   a.q_offset = q_offset;
   a.sm_scale = sm_scale;
-  a.vec = rows_16b(a);
+  a.vec = emmax::tc::rows_16b(D, strides, {q, k, v, dout});
   if (dkv && fused && dq_part == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

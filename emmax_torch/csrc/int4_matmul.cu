@@ -13,31 +13,92 @@
 // scale [D/group, F] bf16; mid-rise decode w = (q + 0.5) * s. Sums are
 // fp32; the output has x's dtype.
 //
-// What bounds it on the H100: decode (M = 1 .. 48) reads every weight byte
-// once and does 2*M flops per weight, far below the ~295 flops/byte
-// ridge, so it is bound by the 3.35 TB/s of HBM: the weight bytes
-// (D*F/2 + 2*F*D/group) are the cost. Prefill (M ~ 384) is compute-bound;
-// this version does the products on the CUDA cores in fp32, so prefill
-// runs far from the tensor-core bound (a known slow tile, written down in
-// PERF.md).
+// What bounds it on the H100: decode (M = 1 .. 8) reads every weight byte
+// once and does 2*M operations per weight, far below the ~295
+// operations/byte ridge, so it is bound by the 3.35 TB/s of HBM: the weight
+// bytes (D*F/2 + 2*F*D/group) are the cost. The unpacking costs
+// instructions per weight whatever M is, so on the CUDA cores' fp32 FMAs
+// (2*M per weight, plus the unpack) the old kernel became bound by
+// operations from M ~ 4 up; on the tensor cores the unpack is shared by
+// every row of x and prefill (M ~ 450) is bound by the products.
 //
-// Design: a block of 4 warps owns 128 output columns (4 per lane, one
-// 32-bit load of 4 packed bytes per row, so a warp reads 128 contiguous
-// bytes of a row) and MT rows of x. The packed rows are walked one
-// quantisation group at a time: the block stages that group's x values
-// (both nibble planes) in shared memory, each warp takes every 4th packed
-// row, unpacks both nibbles in registers and accumulates per plane in
-// fp32; the group scale is applied once per group to the partial sums
-// (BM*BN multiplies instead of group*BN), as the TPU kernel does. At
-// decode sizes there are too few column tiles to fill 132 SMs, so the
-// groups are split over gridDim.y (split-K); the per-split partial sums go
-// to an fp32 scratch that a second small kernel reduces into the output.
-// The ragged column edge (lm_head F = 32064) is masked per lane; `group`
-// is a runtime argument (the JAX quantiser shrinks it for tiny dims).
+// bf16 x: tensor-core kernel (namespace `tc`), mma.sync m16n8k16 with A
+// and B swapped: out^T = W^T x^T, so the weight is the 16-row A operand
+// (16 output columns) and 8 rows of x the B operand. A warp owns CPL
+// packed bytes of each of 16 packed rows per k-step and 8 * NN rows of x:
+//   - lane (g, t), g = lane / 4, t = lane % 4, copies its CPL bytes of
+//     packed rows k0 + 4 t .. k0 + 4 t + 3 (one 8-byte cp.async per row,
+//     columns c0 + 8 g .., where F % 8 == 0; else 4-byte words i at
+//     columns c0 + 32 i + 4 g ..) and the 8-byte runs x[m, k0 + 4 t ..]
+//     of both nibble planes into its own slot of a ring of STAGES k-steps
+//     in shared memory; it reads back only what it copied (no barrier:
+//     its own cp.async.wait_group orders it), 80 bytes per lane and
+//     stage, read with 16-byte loads (lane stride 5 x 16 bytes: no bank
+//     conflict);
+//   - packed row k0 + 4 t + r is the MMA's k = 2 t + {0, 1, 8, 9}[r] and
+//     x follows the same order, so the four b32 of B are two 8-byte runs
+//     of x; byte 2 j + h (h = 0, 1) of word i is output column row g + 8 h
+//     of m16 tile 2 i + j. One byte permute gathers a tile's bytes of two
+//     rows, and each nibble becomes its exact bf16 level q + 0.5 (low
+//     nibble u - 7.5 with u the stored +8 value, high nibble (n ^ 8) - 7.5):
+//     the nibble is placed in the mantissa of 64.0 (ulp 0.5) and 71.5
+//     subtracted by one bf16x2 FMA, both exact;
+//   - per 128-row group (any group % 16 == 0) the low and high planes are
+//     accumulated in fp32 separately, then multiplied by that group's
+//     scale of each column and added to the fp32 total: JAX's arithmetic
+//     (int4_matmul.py:300-324) up to summation order, and no bf16 rounding
+//     of the dequantized weight (the plain version has one).
+// Each warp is a unit of (CPL * 8 columns, 8 * NN rows of x, a range of
+// groups) with no barrier; M <= 8 runs CPL 8 / NN 1 (64 columns a warp:
+// at M = 1 the kernel is bound by how many warps stream at once, and 16
+// columns a lane held too many registers), larger M CPL 4 / NN 4 (32
+// columns, 32 rows of x; the x tiles of one column tile are neighbouring
+// warps, so their weight reads meet in L2). Four stages of 2.5 KB a warp.
+// Where the units alone do not fill the card the groups are split over
+// units (split-K) into an fp32 scratch [splits, M, F] that a second kernel
+// sums in split order: deterministic, no atomics. The ragged column edge
+// (lm_head F = 32064) is masked per 4-byte word (F % 4 == 0).
+//
+// fp32 x (and bf16 x whose group is not a multiple of 16): the scalar
+// kernel (namespace `scalar`). A block of 4 warps owns 128 output
+// columns (4 per lane, one 32-bit load of 4 packed bytes per row) and MT
+// rows of x; the packed rows are walked one quantisation group at a time:
+// the group's x values (both planes) are staged in shared memory, each
+// warp takes every 4th packed row, unpacks both nibbles in registers and
+// accumulates per plane in fp32 FMAs; the group scale is applied once per
+// group to the partial sums, as the TPU kernel does. Split-K as above.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+// the split-K partials [splits, M, F] summed in split order into out
+template <typename T>
+__global__ void int4_reduce_kernel(const float* __restrict__ part,
+                                   T* __restrict__ out, int splits,
+                                   long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += part[k * n + i];
+  out[i] = emmax::from_f32<T>(s);
+}
+
+template <typename T>
+cudaError_t reduce(const void* part, void* out, int splits, int M, int F,
+                   cudaStream_t stream) {
+  const long long n = (long long)M * F;
+  const int threads = 256;
+  int4_reduce_kernel<T><<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                          stream>>>(static_cast<const float*>(part),
+                                    static_cast<T*>(out), splits, n);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------ scalar (fp32) ---
+
+namespace scalar {
 
 constexpr int NT = 128;   // threads per block (4 warps)
 constexpr int BN = 128;   // output columns per block
@@ -144,17 +205,6 @@ __global__ void __launch_bounds__(NT) int4_mm_kernel(
   }
 }
 
-template <typename T>
-__global__ void int4_reduce_kernel(const float* __restrict__ part,
-                                   T* __restrict__ out, int splits,
-                                   long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[k * n + i];
-  out[i] = emmax::from_f32<T>(s);
-}
-
 template <typename T, int MT>
 cudaError_t launch(const void* x, const void* q4, const void* scale,
                    void* part, void* out, int M, int D, int F, int group,
@@ -171,12 +221,7 @@ cudaError_t launch(const void* x, const void* q4, const void* scale,
       M, D, F, group, gps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long n = (long long)M * F;
-  const int threads = 256;
-  int4_reduce_kernel<T><<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                          stream>>>(static_cast<const float*>(part),
-                                    static_cast<T*>(out), splits, n);
-  return cudaGetLastError();
+  return reduce<T>(part, out, splits, M, F, stream);
 }
 
 template <typename T>
@@ -184,33 +229,343 @@ cudaError_t dispatch_m(const void* x, const void* q4, const void* scale,
                        void* part, void* out, int M, int D, int F, int group,
                        int gps, int mt, cudaStream_t s) {
   switch (mt) {
-    case 1: return launch<T, 1>(x, q4, scale, part, out, M, D, F, group, gps, s);
-    case 2: return launch<T, 2>(x, q4, scale, part, out, M, D, F, group, gps, s);
-    case 4: return launch<T, 4>(x, q4, scale, part, out, M, D, F, group, gps, s);
-    case 8: return launch<T, 8>(x, q4, scale, part, out, M, D, F, group, gps, s);
+    case 1:
+      return launch<T, 1>(x, q4, scale, part, out, M, D, F, group, gps,
+                            s);
+    case 2:
+      return launch<T, 2>(x, q4, scale, part, out, M, D, F, group, gps,
+                            s);
+    case 4:
+      return launch<T, 4>(x, q4, scale, part, out, M, D, F, group, gps,
+                            s);
+    case 8:
+      return launch<T, 8>(x, q4, scale, part, out, M, D, F, group, gps,
+                            s);
     default: return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace scalar
+
+// --------------------------------------------------- tensor core (bf16) ---
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using emmax::mma::cp_async_ca;
+using emmax::mma::cp_async_commit;
+using emmax::mma::cp_async_wait;
+using emmax::mma::fma_bf16x2;
+using emmax::mma::mma_16816;
+using emmax::mma::pack_bf16;
+
+constexpr int NW = 4;          // warps per block, each a unit of its own
+constexpr int SLOT = 20;       // b32 per lane and stage (5 x 16 bytes)
+constexpr uint32_t ONE2 = 0x3f803f80u;    // bf16x2 (1, 1)
+constexpr uint32_t BIAS2 = 0xc28fc28fu;   // bf16x2 (-71.5, -71.5)
+
+// a block's ring of `stages` k-steps
+constexpr int smem_bytes(int stages) { return stages * NW * 32 * SLOT * 4; }
+
+struct Args {
+  const bf16* x;          // [M, D]
+  const int8_t* q4;       // [D/2, F]
+  const bf16* scale;      // [D/group, F]
+  float* part;            // [splits, M, F] when splits > 1
+  bf16* out;              // [M, F]
+  int M, D, F, group, gps, splits;
+};
+
+// the exact bf16 levels of two nibbles sitting at bits 1..4 and 17..20:
+// placed in the mantissa of 64.0 (ulp 0.5), then 71.5 subtracted. The low
+// nibble u (stored +8) gives u - 7.5; the high nibble n (two's complement)
+// gives (n ^ 8) - 7.5 = n + 0.5
+__device__ __forceinline__ uint32_t lo_level(uint32_t v) {
+  return fma_bf16x2((v & 0x001e001eu) | 0x42804280u, ONE2, BIAS2);
+}
+__device__ __forceinline__ uint32_t hi_level(uint32_t v) {
+  return fma_bf16x2((v & 0x001e001eu) ^ 0x42904290u, ONE2, BIAS2);
+}
+
+// bf16 number i (0..3) of four packed in a uint2, as fp32
+__device__ __forceinline__ float bf16_at(uint2 v, int i) {
+  const uint32_t w = i < 2 ? v.x : v.y;
+  return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
+}
+
+// VEC: the lane's CPL = 8 bytes of a row are one 8-byte cp.async
+// (F % 8 == 0, q4 8-byte aligned); otherwise 4-byte copies
+template <int CPL, int NN, int STAGES, bool VEC>
+__global__ void __launch_bounds__(32 * NW) int4_tc_kernel(Args a) {
+  constexpr int W = CPL / 4;      // 4-byte words per lane and packed row
+  constexpr int TW = CPL / 2;     // m16 tiles per warp
+  constexpr int COLS = 8 * CPL;   // output columns per warp
+  constexpr int MT = 8 * NN;      // rows of x per warp
+  constexpr int STAGE = NW * 32 * SLOT;   // b32 per stage of the block
+  static_assert(4 * W + 4 * NN <= SLOT, "a stage's slot holds it all");
+  static_assert(!VEC || CPL == 8, "vector copies are 8-byte runs");
+
+  extern __shared__ __align__(16) unsigned char smem_i4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_ct = (a.F + COLS - 1) / COLS, n_mt = (a.M + MT - 1) / MT;
+  const long long unit = (long long)blockIdx.x * NW + warp;
+  if (unit >= (long long)n_ct * n_mt * a.splits) return;
+  // x tiles of one column tile are neighbouring units (L2 reuse)
+  const int mt = (int)(unit % n_mt);
+  const int ct = (int)((unit / n_mt) % n_ct);
+  const int ks = (int)(unit / ((long long)n_mt * n_ct));
+  const int c0 = ct * COLS, m0 = mt * MT;
+  const int D2 = a.D >> 1, Gh = D2 / a.group;
+  const int g_begin = ks * a.gps, g_end = min(Gh, g_begin + a.gps);
+  const int spg = a.group / 16;   // k-steps per group
+  // this lane's slot of stage 0; stage j is STAGE b32 further
+  uint32_t* const slots =
+      reinterpret_cast<uint32_t*>(smem_i4) + (warp * 32 + lane) * SLOT;
+
+  // this lane's word i holds output columns c0 + CPL g + 4 i .. + 3 (VEC)
+  // or c0 + 32 i + 4 g .. + 3: a warp's copy is 64 or 32 contiguous bytes
+  // of each row
+  int col[W];
+  bool col_ok[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    col[i] = VEC ? c0 + CPL * g + 4 * i : c0 + 32 * i + 4 * g;
+    col_ok[i] = col[i] < a.F;   // F % 4 == 0: a word is all in or all out
+  }
+
+  // the next step's sources: packed row k + 4t of the lane's words and the
+  // x runs x[m0 + 8n + g, k + 4t ..] (column 0 and row 0 stand in for those
+  // past F and M: valid addresses, copied as zeros), 16 rows on per step
+  const int k_first = g_begin * a.group + 4 * t;
+  const int8_t* wsrc[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    wsrc[i] = a.q4 + (long long)k_first * a.F + (col_ok[i] ? col[i] : 0);
+  const bf16* xsrc[NN];
+  bool x_ok[NN];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    const int m = m0 + 8 * n + g;
+    x_ok[n] = m < a.M;
+    xsrc[n] = a.x + (long long)(x_ok[n] ? m : 0) * a.D + k_first;
+  }
+  const long long wstep = 16LL * a.F;
+  int wslot = 0;
+  auto issue = [&]() {
+    uint32_t* slot = slots + wslot * STAGE;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (VEC) {   // F % 8 == 0: the run is all in or all out
+        cp_async_ca<8>(slot + r * W, wsrc[0] + r * a.F, col_ok[0]);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        cp_async_ca<4>(slot + r * W + i, wsrc[i] + r * a.F, col_ok[i]);
+    }
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      cp_async_ca<8>(slot + 4 * W + 4 * n, xsrc[n], x_ok[n]);
+      cp_async_ca<8>(slot + 4 * W + 4 * n + 2, xsrc[n] + D2, x_ok[n]);
+      xsrc[n] += 16;
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) wsrc[i] += wstep;
+    wslot = wslot + 1 == STAGES ? 0 : wslot + 1;
+  };
+
+  const int n_steps = (g_end - g_begin) * spg;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) issue();
+    cp_async_commit();
+  }
+  int to_issue = n_steps - (STAGES - 1);
+  int rslot = 0;
+
+  float tot[TW][NN][4], alo[TW][NN][4], ahi[TW][NN][4];
+#pragma unroll
+  for (int j = 0; j < TW; ++j)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tot[j][n][e] = alo[j][n][e] = ahi[j][n][e] = 0.f;
+
+  for (int gi = g_begin; gi < g_end; ++gi) {
+    uint2 slo[W], shi[W];   // the group's scales of the lane's columns
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint2 zero = make_uint2(0u, 0u);
+      const bf16* sp = a.scale + (long long)gi * a.F + col[i];
+      slo[i] = col_ok[i] ? __ldg(reinterpret_cast<const uint2*>(sp)) : zero;
+      shi[i] = col_ok[i] ? __ldg(reinterpret_cast<const uint2*>(
+                               sp + (long long)Gh * a.F))
+                         : zero;
+    }
+    for (int kin = 0; kin < spg; ++kin) {
+      cp_async_wait<STAGES - 2>();   // this step landed (the lane's copies)
+      uint32_t d[SLOT];
+      const uint4* slot =
+          reinterpret_cast<const uint4*>(slots + rslot * STAGE);
+#pragma unroll
+      for (int c = 0; c < SLOT / 4; ++c) {
+        const uint4 v = slot[c];
+        d[4 * c] = v.x;
+        d[4 * c + 1] = v.y;
+        d[4 * c + 2] = v.z;
+        d[4 * c + 3] = v.w;
+      }
+      rslot = rslot + 1 == STAGES ? 0 : rslot + 1;
+      // the slot of the previous step, read last time, takes a new step
+      if (to_issue-- > 0) issue();
+      cp_async_commit();
+
+#pragma unroll
+      for (int j = 0; j < TW; ++j) {
+        // bytes 2 (j & 1) .. + 1 of word j / 2 of rows 4t, 4t + 1 (p01)
+        // and 4t + 2, 4t + 3 (p23): byte 0 / 2 column row g, byte 1 / 3
+        // row g + 8
+        const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+        const int i = j >> 1;
+        const uint32_t p01 = __byte_perm(d[i], d[W + i], sel);
+        const uint32_t p23 = __byte_perm(d[2 * W + i], d[3 * W + i], sel);
+        const uint32_t al[4] = {lo_level(p01 << 1), lo_level(p01 >> 7),
+                                lo_level(p23 << 1), lo_level(p23 >> 7)};
+        const uint32_t ah[4] = {hi_level(p01 >> 3), hi_level(p01 >> 11),
+                                hi_level(p23 >> 3), hi_level(p23 >> 11)};
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          const uint32_t* xb = d + 4 * W + 4 * n;
+          mma_16816(alo[j][n], al, xb[0], xb[1]);
+          mma_16816(ahi[j][n], ah, xb[2], xb[3]);
+        }
+      }
+    }
+
+    // the group's end: scale its sums per column
+#pragma unroll
+    for (int j = 0; j < TW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int sc = 2 * (j & 1) + (e >> 1);
+        const float sl = bf16_at(slo[j >> 1], sc);
+        const float sh = bf16_at(shi[j >> 1], sc);
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          tot[j][n][e] += alo[j][n][e] * sl + ahi[j][n][e] * sh;
+          alo[j][n][e] = ahi[j][n][e] = 0.f;
+        }
+      }
+  }
+
+  // C element e: column row g + 8 (e >> 1) of tile j, x row 2t + (e & 1)
+#pragma unroll
+  for (int j = 0; j < TW; ++j) {
+    const int cj = col[j >> 1] + 2 * (j & 1);
+    if (!col_ok[j >> 1]) continue;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int m = m0 + 8 * n + 2 * t + q;
+        if (m >= a.M) continue;
+        const float v0 = tot[j][n][q], v1 = tot[j][n][2 + q];
+        if (a.splits > 1)
+          *reinterpret_cast<float2*>(
+              a.part + ((long long)ks * a.M + m) * a.F + cj) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(a.out + (long long)m * a.F + cj) =
+              pack_bf16(v0, v1);
+      }
+  }
+}
+
+template <int CPL, int NN, int STAGES, bool VEC>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int smem = smem_bytes(STAGES);
+  cudaError_t err = cudaFuncSetAttribute(
+      int4_tc_kernel<CPL, NN, STAGES, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)((a.F + 8 * CPL - 1) / (8 * CPL)) *
+                          ((a.M + 8 * NN - 1) / (8 * NN)) * a.splits;
+  const unsigned blocks = (unsigned)((units + NW - 1) / NW);
+  int4_tc_kernel<CPL, NN, STAGES, VEC><<<blocks, 32 * NW, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return reduce<bf16>(a.part, a.out, a.splits, a.M, a.F, stream);
+}
+
+// the two shapes of unit: (columns a lane, x tiles, stages) for mt, the
+// rows of x per warp
+constexpr int SMALL_CPL = 8, SMALL_STAGES = 4;    // mt 8: M <= 8
+constexpr int LARGE_CPL = 4, LARGE_NN = 4, LARGE_STAGES = 4;   // mt 32
+
+cudaError_t dispatch(const Args& a, int mt, cudaStream_t s) {
+  if (a.splits > 1 && a.part == nullptr) return cudaErrorInvalidValue;
+  const bool vec = a.F % SMALL_CPL == 0 &&
+                   reinterpret_cast<uintptr_t>(a.q4) % SMALL_CPL == 0;
+  if (mt == 8)
+    return vec ? launch<SMALL_CPL, 1, SMALL_STAGES, true>(a, s)
+               : launch<SMALL_CPL, 1, SMALL_STAGES, false>(a, s);
+  if (mt == 8 * LARGE_NN)
+    return launch<LARGE_CPL, LARGE_NN, LARGE_STAGES, false>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+int smem_of(int mt) {
+  if (mt == 8) return smem_bytes(SMALL_STAGES);
+  if (mt == 8 * LARGE_NN) return smem_bytes(LARGE_STAGES);
+  return -1;
+}
+
+}  // namespace tc
 
 }  // namespace
 
 // x [M, D] (dtype), q4 [D/2, F] int8, scale [D/group, F] bf16, out [M, F]
 // (dtype), part [ceil((D/2/group)/gps), M, F] fp32 scratch when that count
-// exceeds 1. `mt` is the number of x rows per block (1, 2, 4 or 8).
-// Returns the cudaError_t of the launches (0 = success).
+// exceeds 1. bf16 x with group % 16 == 0 runs the tensor-core kernel, `mt`
+// its rows of x per warp (8 or 32; x 8-byte aligned, scale 8-byte
+// aligned); otherwise the scalar kernel, `mt` its rows of x per block (1,
+// 2, 4 or 8). Returns the cudaError_t of the launches (0 = success).
 extern "C" int emmax_int4_matmul(const void* x, const void* q4,
                                  const void* scale, void* part, void* out,
                                  int M, int D, int F, int group, int gps,
                                  int mt, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == emmax::kBFloat16)
-    err = dispatch_m<__nv_bfloat16>(x, q4, scale, part, out, M, D, F, group,
+  if (dtype == emmax::kBFloat16 && group % 16 == 0) {
+    tc::Args a;
+    a.x = static_cast<const __nv_bfloat16*>(x);
+    a.q4 = static_cast<const int8_t*>(q4);
+    a.scale = static_cast<const __nv_bfloat16*>(scale);
+    a.part = static_cast<float*>(part);
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.M = M;
+    a.D = D;
+    a.F = F;
+    a.group = group;
+    a.gps = gps;
+    a.splits = ((D / 2) / group + gps - 1) / gps;
+    err = tc::dispatch(a, mt, s);
+  } else if (dtype == emmax::kBFloat16) {
+    err = scalar::dispatch_m<__nv_bfloat16>(x, q4, scale, part, out, M, D,
+                                            F, group, gps, mt, s);
+  } else if (dtype == emmax::kFloat32) {
+    err = scalar::dispatch_m<float>(x, q4, scale, part, out, M, D, F, group,
                                     gps, mt, s);
-  else if (dtype == emmax::kFloat32)
-    err = dispatch_m<float>(x, q4, scale, part, out, M, D, F, group, gps, mt,
-                            s);
-  else
+  } else {
     err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory (bytes) of the tensor-core kernel's blocks at
+// `mt` rows of x per warp (8 or 32); -1 otherwise.
+extern "C" int emmax_int4_matmul_smem_bytes(int mt) {
+  return tc::smem_of(mt);
 }

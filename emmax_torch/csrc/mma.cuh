@@ -72,6 +72,19 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// cp.async.ca.shared.global of N = 4 or 8 bytes (both addresses N-byte
+// aligned); with `valid` false the N shared bytes are zero-filled and
+// nothing is read
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool valid) {
+  static_assert(N == 4 || N == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(N), "r"(valid ? N : 0)
+               : "memory");
+}
+
 // cp.async.commit_group
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -99,6 +112,15 @@ __device__ __forceinline__ int swizzle(int row, int chunk) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a * b + c on two bf16 lanes (fma.rn.bf16x2), each operand a b32 of two
+// bf16, the lower half the lower lane
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
 }  // namespace mma

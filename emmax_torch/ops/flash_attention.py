@@ -11,9 +11,15 @@ projection (the towers) is passed without a copy:
 - ``csrc/flash_bwd.cu``: ``flash_bwd_dq`` (``_dq_kernel``) and
   ``flash_bwd_dkv`` (``_dkv_kernel``), the latter with the fused variant
   that also writes per-kv-tile fp32 dQ partials, summed here as JAX sums
-  them. bf16 inputs run on the tensor cores (``mma.sync`` through
-  ``csrc/mma.cuh``; P is rounded to bf16 for dV = P^T dO, where the plain
-  version keeps it in fp32), fp32 inputs on scalar fp32 kernels.
+  them.
+
+bf16 inputs run on the tensor cores (``mma.sync`` through
+``csrc/mma.cuh``, tiles through ``csrc/tc_tile.cuh``), fp32 inputs on
+scalar fp32 kernels. The bf16 forward rounds each 64-key tile's
+unnormalised P to bf16 before P V, as JAX's kernel does per tile (the
+plain version rounds the normalised probabilities); the bf16 backward
+rounds P to bf16 for dV = P^T dO, where the plain version and JAX keep
+it in fp32.
 
 They handle the shapes of the serving and training paths: bidirectional
 ViT attention (DINOv2 D=64 over 261 tokens, SigLIP D=72 over 256 tokens;

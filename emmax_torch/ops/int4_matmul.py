@@ -18,11 +18,19 @@ so a tree quantized by either package runs in the other:
 for CUDA tensors and runs the plain version (dequantize, then matmul) for
 CPU tensors. A stacked ``{"q4", "scale", "layer"}`` weight is read through
 the view ``q4[layer]``: no per-layer copy is made.
+
+bf16 x (with ``group % 16 == 0``, every shape the quantizer gives a
+model) runs on the tensor cores: each nibble becomes its exact bf16
+level ``q + 0.5``, each group's products are summed in fp32 per nibble
+plane and scaled per column, as JAX's kernel does; the plain version
+rounds the dequantized weight to bf16 first. fp32 x runs the scalar
+kernel, with fp32 FMAs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any, Dict
 
 import numpy as np
@@ -39,7 +47,7 @@ _I = ctypes.c_int
 KERNEL = CudaKernel("int4_matmul.cu", "emmax_int4_matmul",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 
-_BN = 128           # output columns per block (csrc/int4_matmul.cu)
+_BN = 128           # scalar kernel: output columns per block
 
 
 def _resolve_group(D: int, group: int) -> int:
@@ -178,15 +186,40 @@ def int4_matmul_reference(x2d: torch.Tensor, q4: torch.Tensor,
     return x2d @ w
 
 
-def _launch_shape(M: int, F: int, g_half: int, sm_count: int):
-    """(rows per block, groups per split, splits) for the kernel's grid:
-    the groups are split (split-K) until there are about two blocks per
-    SM, which decode's few column tiles alone do not give."""
-    mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
-    blocks = -(-F // _BN) * -(-M // mt)
-    splits = max(1, min(g_half, -(-2 * sm_count // blocks)))
+def _launch_shape(M: int, F: int, g_half: int, sm_count: int,
+                  tensor_cores: bool = False):
+    """(rows of x per block or warp, groups per split, splits) for the
+    kernel's grid: the groups are split (split-K) until the units fill the
+    card, which decode's few column tiles alone do not.
+
+    Scalar kernel: a block of 128 columns and ``mt`` rows of x is a unit,
+    about two per SM. Tensor cores: a warp is a unit, of 64 columns and 8
+    rows of x (M <= 8) or 32 columns and 32 rows, about ten per SM (the
+    fastest of the splits timed on an H100 at the Llama-2-7B shapes)."""
+    if tensor_cores:
+        mt = 8 if M <= 8 else 32
+        units = -(-F // (64 if mt == 8 else 32)) * -(-M // mt)
+        target = 10 * sm_count
+    else:
+        mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
+        units = -(-F // _BN) * -(-M // mt)
+        target = 2 * sm_count
+    splits = max(1, min(g_half, -(-target // units)))
     gps = -(-g_half // splits)
     return mt, gps, -(-g_half // gps)
+
+
+def _require_cuda(x2d, q4, scale) -> None:
+    if not (x2d.is_cuda and q4.device == x2d.device
+            and scale.device == x2d.device):
+        raise ValueError("int4_matmul_cuda: x, q4 and scale must be on one "
+                         "CUDA device")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, asked once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def int4_matmul_cuda(x2d: torch.Tensor, q4: torch.Tensor,
@@ -199,10 +232,7 @@ def int4_matmul_cuda(x2d: torch.Tensor, q4: torch.Tensor,
     M, D = x2d.shape
     D2, F = q4.shape
     G = scale.shape[0]
-    if not (x2d.is_cuda and q4.device == x2d.device
-            and scale.device == x2d.device):
-        raise ValueError("int4_matmul_cuda: x, q4 and scale must be on one "
-                         "CUDA device")
+    _require_cuda(x2d, q4, scale)
     if q4.dtype != torch.int8 or scale.dtype != torch.bfloat16:
         raise TypeError(f"int4_matmul_cuda: q4 must be int8 and scale bf16, "
                         f"got {q4.dtype} / {scale.dtype}")
@@ -220,9 +250,14 @@ def int4_matmul_cuda(x2d: torch.Tensor, q4: torch.Tensor,
     out = torch.empty((M, F), dtype=x2d.dtype, device=x2d.device)
     if M == 0:
         return out
-    sm_count = torch.cuda.get_device_properties(
-        x2d.device).multi_processor_count
-    mt, gps, splits = _launch_shape(M, F, D2 // group, sm_count)
+    tensor_cores = x2d.dtype == torch.bfloat16 and group % 16 == 0
+    if tensor_cores and (q4.data_ptr() % 4 or scale.data_ptr() % 8):
+        raise ValueError("int4_matmul_cuda: q4 must be 4-byte and scale "
+                         "8-byte aligned")
+    if tensor_cores and x2d.data_ptr() % 16:
+        x2d = x2d.clone()       # the kernel copies x in aligned 8-byte runs
+    mt, gps, splits = _launch_shape(M, F, D2 // group, _sm_count(x2d.device),
+                                    tensor_cores)
     part = (torch.empty((splits, M, F), dtype=torch.float32,
                         device=x2d.device) if splits > 1 else None)
     KERNEL.launch(x2d.data_ptr(), q4.data_ptr(), scale.data_ptr(),

@@ -9,8 +9,9 @@ This file imports no JAX, so it runs where only PyTorch is installed
 Tolerances, relative to the largest |reference| value: 1e-4 in fp32 (the
 same inputs, sums in another order), 2e-2 in bf16 (the kernels keep fp32
 where the plain versions round to bf16). The LSE is held at 1e-5
-absolute (fp32 in both). The bf16 flash backward runs on the tensor
-cores, which take P in bf16 for dV = P^T dO where the plain version (and
+absolute (fp32 in both). The bf16 flash forward and backward run on the
+tensor cores. The forward rounds P to bf16 before P V, as JAX does; the
+backward takes P in bf16 for dV = P^T dO where the plain version (and
 JAX) keep it in fp32: one more relative rounding of at most 2^-9 per
 term, well inside 2e-2; every other product has bf16-exact operands and
 fp32 sums in both.
@@ -189,6 +190,35 @@ def test_flash_backward_tensor_cores_match_plain(dev, case):
             assert torch.equal(a, b)
 
 
+# the bf16 forward on the tensor cores: the backward's cases and one where
+# every row of the batch sees no key
+FWD_TC = BWD_TC + [(1, 70, 70, 2, 128, True, 0, 70, 0, "contig")]
+
+
+@pytest.mark.parametrize("case", FWD_TC, ids=[str(c) for c in FWD_TC])
+def test_flash_forward_tensor_cores_match_plain(dev, case):
+    """The bf16 tensor-core forward against the plain version: ragged
+    tiles, padded D, misaligned rows, strided views, rectangular causal
+    offsets; rows that see no key are exact zeros with the LSE sentinel
+    bit for bit; the same bits on a rerun, with and without the LSE."""
+    from emmax_torch.ops import flash_attention as fa
+
+    q, k, v, _, kw = _bwd_inputs(dev, case)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert out.dtype == torch.bfloat16
+    _close(out, fa.flash_attention_reference(q, k, v, **kw), 2e-2)
+    want_lse = fa.flash_lse_reference(q, k, **kw)
+    live = want_lse > -1e30
+    assert torch.equal(lse[~live], want_lse[~live])     # the sentinel
+    assert not out[~live].any()                         # exact zeros
+    if live.any():
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-5 * max(
+            1.0, want_lse[live].abs().max().item())
+    again, lse2 = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, **kw), out)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_dq_partials_one_per_kv_tile(dev, dtype):
     """The fused dK/dV kernel writes ceil(S / BWD_KV_TILE) fp32 partials,
@@ -237,9 +267,10 @@ def test_autograd_function_launches_the_backward_kernels(dev):
         _close(t.grad / 2, r.grad, 1e-4)           # two backward passes
 
 
-INT4 = [  # (M, D, F, group)
+INT4 = [  # (M, D, F, group); D 80 shrinks the group to 8: bf16 x then
+    # runs the scalar kernel, as fp32 x does
     (1, 256, 200, 128), (3, 64, 36, 32), (17, 128, 384, 64),
-    (130, 512, 260, 128), (1, 11008, 512, 128),
+    (130, 512, 260, 128), (1, 11008, 512, 128), (5, 80, 36, 128),
 ]
 
 
@@ -256,6 +287,54 @@ def test_int4_kernel_matches_plain(dev, case, dtype):
     got = im.int4_matmul(x, {**qw, "layer": 2})
     want = im.int4_matmul_reference(x, qw["q4"][2], qw["scale"][2])
     _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+# bf16 x on the tensor cores: (M, D, F, group); F ragged against the
+# 128- and 32-column tiles, groups of 32 / 64 / 128, units that walk one
+# group and several, D 11008 (43 groups per plane, odd)
+INT4_TC = [
+    (2, 256, 200, 64), (6, 512, 4100, 128), (17, 128, 384, 32),
+    (48, 1024, 1000, 64), (130, 1024, 4100, 64), (1, 11008, 4096, 128),
+]
+
+
+def _int4_exact(x, q4, scale):
+    """x @ dequant(q4, scale) in float64, with the exact levels q + 0.5."""
+    b = q4.to(torch.int32)
+    w = torch.cat([(b & 15) - 8, b >> 4], dim=0).double() + 0.5
+    group = w.shape[0] // scale.shape[0]
+    w = w * scale.double().repeat_interleave(group, dim=0)
+    return x.double() @ w
+
+
+@pytest.mark.parametrize("case", INT4_TC, ids=[str(c) for c in INT4_TC])
+def test_int4_tensor_cores_match_plain(dev, case):
+    """The bf16 tensor-core kernel on a stacked view against the plain
+    version (2e-2) and against the exact product: within one bf16
+    rounding of the output (2^-8 relative) plus 1e-6 of the largest value
+    for fp32 sums; the same bits on a rerun; an x that does not start on
+    a 16-byte boundary gives the same bits."""
+    from emmax_torch.ops import int4_matmul as im
+
+    M, D, F, group = case
+    g = torch.Generator(dev).manual_seed(3)
+    w = torch.randn(3, D, F, device=dev, generator=g) * 0.02
+    qw = im.quantize_weight_int4(w, group=group)
+    assert qw["scale"].shape[-2] == D // group
+    x = torch.randn(M, D, device=dev, generator=g).bfloat16()
+    before = im.KERNEL.launches
+    got = im.int4_matmul(x, {**qw, "layer": 1})
+    assert im.KERNEL.launches == before + 1 and got.dtype == torch.bfloat16
+    q4, scale = qw["q4"][1], qw["scale"][1]
+    _close(got, im.int4_matmul_reference(x, q4, scale), 2e-2)
+    exact = _int4_exact(x, q4, scale)
+    slack = 2 ** -8 * exact.abs() + 1e-6 * exact.abs().max()
+    assert bool(((got.double() - exact).abs() <= slack).all())
+    assert torch.equal(im.int4_matmul_cuda(x, q4, scale), got)
+    buf = torch.empty(M * D + 1, dtype=torch.bfloat16, device=dev)
+    odd = buf[1:].view(M, D)
+    odd.copy_(x)
+    assert torch.equal(im.int4_matmul_cuda(odd, q4, scale), got)
 
 
 def test_quantizer_on_card_matches_cpu(dev):
