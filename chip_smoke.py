@@ -10,12 +10,15 @@ Phases, each raising on failure (the script then exits non-zero):
 2. build the four hand-written kernel sources from ``emmax_torch/csrc``
    (one ``nvcc`` per source, started together);
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes: flash-attention forward for DINOv2, SigLIP and the Llama
-   prefill (left-padded, into the whole cache) and the Llama training
-   shape; int4 matmul at M = 1, 6, 48 and the prefill length for every
-   Llama-2-7B weight shape, through the stacked view. bf16 runs the
-   tensor-core kernels (exact zeros and the LSE sentinel on rows that see
-   no key, the same bits on a rerun), fp32 the scalar ones. Each is timed
+   path's shapes: flash-attention forward for DINOv2 and SigLIP (batch 1,
+   a served frame, and batch 6, an admission's frames), the Llama prefill
+   (left-padded, into the whole cache) and the Llama training shape; int4
+   matmul at M = 1, 6, 48 and the prefill length for every Llama-2-7B
+   weight shape, through the stacked view. The flash forward runs bf16 on
+   the bf16 tensor-core kernel and fp32 on the 3xTF32 one (exact zeros
+   and the LSE sentinel on rows that see no key, the same bits on a rerun,
+   in both); the int4 matmul's bf16 x the tensor-core kernel, fp32 x the
+   scalar one. Each is timed
    in the dtype the main path gives it (the towers run in fp32, as in
    JAX; the decoder in bf16). Max error against the
    stated tolerance; kernel, plain and library
@@ -23,7 +26,9 @@ Phases, each raising on failure (the script then exits non-zero):
    the weight repacked outside the timed calls) device times from CUDA
    events over a captured CUDA graph, and the kernel's eager time per
    call; the bound (bytes over 3.35 TB/s or operations over the peak for
-   their dtype, whichever is larger);
+   their dtype, whichever is larger; the 3xTF32 forward's fp32 operations
+   count three times over the TF32 peak, with one over the fp32 peak
+   beside it);
 4. the tiny config on the card (fp32, through the kernels) against the
    same weights on the CPU (plain versions): identical greedy tokens;
 5. Emma-X at full width (random weights from a seeded generator):
@@ -32,17 +37,20 @@ Phases, each raising on failure (the script then exits non-zero):
    frames; per request vision-encode / prefill ms, decode tok/s, peak
    memory, and each kernel's launches in that path's run (counts set to 0
    just before, read just after; a kernel of the path with no launch
-   fails the run); then one shorter request under ``torch.profiler`` for
+   fails the run, and the towers' fp32 forward must launch depth - 1
+   times per tower in every encode of that run); then one shorter request under ``torch.profiler`` for
    each phase's device busy time, and each phase's bound;
 6. training kernels (in phase 3's call): the forward's LSE, dQ and dK/dV
    (separate and fused) against the plain backward at the Llama training
    shape (B2, fused 448, H32, D128, causal, one row right-padded, bf16:
    the tensor-core kernels) and the DINOv2 / SigLIP shapes
-   (bidirectional, fp32: the scalar kernels), with device and eager ms,
+   (bidirectional, fp32: the 3xTF32 forward, the scalar backward), with
+   device and eager ms,
    bounds and ``scaled_dot_product_attention`` forward and backward
-   through autograd as the library time; the bf16 tensor-core kernels'
-   (forward, backward, int4) registers, spills and shared memory from the
-   ``-Xptxas -v`` build log and the sources' ``*_smem_bytes`` entries;
+   through autograd as the library time; the tensor-core kernels'
+   (forward bf16 and 3xTF32, backward, int4) and the paged kernels'
+   registers, spills and shared memory from the ``-Xptxas -v`` build log
+   and the sources' ``*_smem_bytes`` entries;
 7. ``align7b``: the full 7B (full width and depth) in the align stage
    (towers and Llama frozen, projector trained; B2, text 192 -> fused
    448; full remat; bf16 compute on fp32 master params; constant LR): one
@@ -58,7 +66,10 @@ Phases, each raising on failure (the script then exits non-zero):
    runs it) against its plain version at the batched engines' shape (B6,
    H32, hd 128, page size 128, 6 pages per row, ragged lengths 1 / 127 /
    128 / 129 / 458 / 768 on non-contiguous pages) with bf16 pages, int8
-   pages and one GQA case (KV 8, G 4); device and eager ms, plain ms, the
+   pages and one GQA case (KV 8, G 4), split into ``splits(6, 128)`` page
+   ranges; the same bits on a rerun, and a CUDA graph of one call that,
+   replayed after the lengths change on the device, equals the eager call
+   on the new lengths; device and eager ms, plain ms, the
    bound (the valid tokens' K/V bytes and scales, q and out over 3.35
    TB/s) and, as the library time, ``scaled_dot_product_attention`` on the
    K/V gathered to a dense layout outside the timed region;
@@ -106,6 +117,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12       # fp32 outside the tensor cores (no TF32)
+TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 MODEL_ID = "prism-dinosiglip-224px+7b"
 TASK = "put the carrot in the pot"
 MAX_NEW = 64
@@ -198,6 +210,30 @@ def bound_ms(n_bytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _template_args(s: str) -> list:
+    """``float, int8, 4, 16`` from the mangled ``faLi4ELi16E``; a
+    substitution (``S1_``, a type named before) repeats the last type."""
+    out, last = [], None
+    while s:
+        m = re.match(r"Li(-?\d+)E", s)
+        if m:
+            out.append(m.group(1))
+            s = s[m.end():]
+            continue
+        m = re.match(r"(\d+)", s)
+        if m:
+            name = s[m.end():m.end() + int(m.group(1))]
+            last = {"__nv_bfloat16": "bf16"}.get(name, name)
+            s = s[m.end() + len(name):]
+        elif re.match(r"S\d*_", s):
+            s = s[re.match(r"S\d*_", s).end():]
+        else:
+            last = {"f": "float", "a": "int8"}.get(s[0], s[0])
+            s = s[1:]
+        out.append(last)
+    return out
+
+
 def _kernel_name(mangled: str) -> str:
     """``tc::dkv_kernel<128, true>`` (or ``tc::int4_tc_kernel<8, 1, 4,
     true>``) for a tensor-core kernel's mangled name; other names as they
@@ -207,7 +243,11 @@ def _kernel_name(mangled: str) -> str:
         args = [v if k == "i" else ("true" if v == "1" else "false")
                 for k, v in re.findall(r"L([ib])(\d+)E", m.group(1))]
         return f"tc::int4_tc_kernel<{', '.join(args)}>"
-    m = re.search(r"(tc|scalar)\d+(dq_kernel|dkv_kernel|fwd_kernel)"
+    m = re.search(r"paged_attention_cu_\w+?\d+(split_kernel|merge_kernel)"
+                  r"I(.*?)EEv", mangled)
+    if m:
+        return f"paged::{m.group(1)}<{', '.join(_template_args(m.group(2)))}>"
+    m = re.search(r"(tc|tf32|scalar)\d+(dq_kernel|dkv_kernel|fwd_kernel)"
                   r"ILi(\d+)E(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
@@ -277,12 +317,15 @@ def prefill_shape(tokenizer, num_patches: int) -> tuple:
 
 def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype,
                 rpad=0):
-    """Kernel vs plain at one shape in fp32 (the scalar kernel) and in bf16
-    (the tensor-core kernel); ``n_pad`` left-pad slots in every row and
+    """Kernel vs plain at one shape in fp32 (the 3xTF32 kernel) and in bf16
+    (the bf16 tensor-core kernel); ``n_pad`` left-pad slots in every row and
     ``rpad`` right-pad slots in the last (kv_mask). Query rows that see no
     key must be exact zeros with the LSE sentinel bit for bit, and a
     rerun must give the same bits. Timed in ``dtype``, the one the main
-    path gives it."""
+    path gives it. In fp32 the bound counts the three TF32 products the
+    kernel makes of each product at the TF32 peak; the record keeps the
+    bound of one product at the fp32 peak beside it
+    (``bound_fp32_fma_ms``)."""
     from emmax_torch.ops import flash_attention as fa
     from emmax_torch.ops.attention import NEG_INF
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -328,14 +371,20 @@ def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype,
              else B * Lq * S)
     n_bytes = q.element_size() * (2 * B * Lq * H * D + 2 * B * S * H * D) + (
         B * S if kv_mask is not None else 0)
-    bms, by = bound_ms(n_bytes, 4.0 * H * D * pairs,
-                       FP32_FLOPS_PER_S if dtype == torch.float32
-                       else BF16_FLOPS_PER_S)
-    return {"name": "flash_fwd", "shape": name, "dtype": str(dtype)[6:],
-            "max_abs_err": errs[dtype][0], "rel_err": rel,
-            "fp32_rel_err": rel32, "ms": ms, "eager_ms": eager,
-            "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-            "bound_by": by, "dead_rows": int(dead.sum().item())}
+    flops = 4.0 * H * D * pairs
+    if dtype == torch.float32:
+        bms, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
+    else:
+        bms, by = bound_ms(n_bytes, flops)
+    rec = {"name": "flash_fwd", "shape": name, "dtype": str(dtype)[6:],
+           "max_abs_err": errs[dtype][0], "rel_err": rel,
+           "fp32_rel_err": rel32, "ms": ms, "eager_ms": eager,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+           "bound_by": by, "dead_rows": int(dead.sum().item())}
+    if dtype == torch.float32:
+        rec["bound_fp32_fma_ms"] = bound_ms(n_bytes, flops,
+                                            FP32_FLOPS_PER_S)[0]
+    return rec
 
 
 def tinygemm_weight(q4: torch.Tensor, scale: torch.Tensor) -> tuple:
@@ -422,16 +471,15 @@ def kernel_phase(dev):
     (_, dino), (_, sig) = cfg.vision
     llm = cfg.llm
     F = cfg.num_patches + ALIGN_TEXT          # the align7b fused length
-    flash = [
-        check_flash(dev, gen, f"dino B1 L{dino.num_patches + dino.num_prefix}"
-                    f" H{dino.n_heads} D{dino.head_dim}", 1,
-                    dino.num_patches + dino.num_prefix,
-                    dino.num_patches + dino.num_prefix, dino.n_heads,
-                    dino.head_dim, False, 0, torch.float32),
-        check_flash(dev, gen, f"siglip B1 L{sig.num_patches} H{sig.n_heads}"
-                    f" D{sig.head_dim}", 1, sig.num_patches,
-                    sig.num_patches, sig.n_heads, sig.head_dim, False, 0,
-                    torch.float32),
+    Ld = dino.num_patches + dino.num_prefix
+    # the towers for one served frame (B1) and an admission's frames (B6)
+    towers = [check_flash(dev, gen, f"{n} B{B} L{L} H{t.n_heads} "
+                          f"D{t.head_dim}", B, L, L, t.n_heads, t.head_dim,
+                          False, 0, torch.float32)
+              for B in (1, PAGED_REQUESTS)
+              for n, t, L in (("dino", dino, Ld),
+                              ("siglip", sig, sig.num_patches))]
+    flash = towers[:2] + [
         check_flash(dev, gen, f"llama prefill B1 Lq{Lq} S{S} H{llm.n_heads}"
                     f" D{llm.head_dim} causal pad{bucket - n_tok}", 1, Lq, S,
                     llm.n_heads, llm.head_dim, True, bucket - n_tok,
@@ -448,6 +496,7 @@ def kernel_phase(dev):
     # verify's upper bound; Lq: prefill
     int4 = [check_int4(dev, gen, f"{n} M{M} D{d} F{f}", M, d, f)
             for M in (1, 6, 48, Lq) for n, d, f in shapes]
+    flash += towers[2:]
     for r in flash + int4:
         log("kernel " + json.dumps(r))
     return flash, int4
@@ -562,7 +611,12 @@ def check_flash_bwd(dev, gen, name, B, L, H, D, causal, rpad, dtype):
                "flash_bwd_dkv_fused": lib_both - lib_fwd}
     recs = []
     for kname, (ms, eager) in times.items():
-        bms, by = bound_ms(*work[kname], peak)
+        n_bytes, ops = work[kname]
+        if kname == "flash_fwd_lse" and dtype == torch.float32:
+            # the 3xTF32 forward: three TF32 products for each one
+            bms, by = bound_ms(n_bytes, 3 * ops, TF32_FLOPS_PER_S)
+        else:
+            bms, by = bound_ms(n_bytes, ops, peak)
         recs.append({"name": kname, "shape": name, "dtype": str(dtype)[6:],
                      "max_abs_err": errs_out[kname][0],
                      "rel_err": errs_out[kname][1], "ms": ms,
@@ -611,7 +665,11 @@ def check_paged(dev, gen, name, KV, G, kdt):
     size 128, 6 pages per row on shuffled page ids, hd 128. Held in fp32
     q (tolerance FP32_RTOL) and bf16 q (BF16_RTOL: the TPU kernel re-rounds
     its bf16 output once per compute block, this one keeps fp32 and rounds
-    once); timed with bf16 q, as the engine gives it."""
+    once); timed with bf16 q, as the engine gives it. A rerun must give the
+    same bits, and a CUDA graph of one call, replayed after the lengths
+    change in place, must equal the eager call on the new lengths: the
+    split count is fixed by the shapes, nothing is read back to the
+    host."""
     from emmax_torch.ops import paged_attention as pa
     from emmax_torch.serving.paged import _row_quantize
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -643,6 +701,24 @@ def check_paged(dev, gen, name, KV, G, kdt):
                              f"(tol {FP32_RTOL}), bf16 {rel:.3g} "
                              f"(tol {BF16_RTOL})")
     q = q32.bfloat16()
+    eager = pa.paged_attention_cuda(q, k, v, lengths, table, **kw)
+    if not torch.equal(pa.paged_attention_cuda(q, k, v, lengths, table, **kw),
+                       eager):
+        raise AssertionError(f"paged {name}: a rerun changed bits")
+    live_lengths = lengths.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = pa.paged_attention_cuda(q, k, v, live_lengths, table, **kw)
+    graph.replay()
+    same = torch.equal(replayed, eager)
+    live_lengths.copy_(lengths.flip(0))        # new lengths, on the device
+    graph.replay()
+    same &= torch.equal(replayed, pa.paged_attention_cuda(
+        q, k, v, lengths.flip(0).contiguous(), table, **kw))
+    del graph
+    if not same:
+        raise AssertionError(f"paged {name}: the CUDA graph's replay differs "
+                             f"from the eager call")
     ms, eager = time_ms(lambda: pa.paged_attention_cuda(q, k, v, lengths,
                                                         table, **kw))
     plain, _ = time_ms(lambda: pa.paged_attention_reference(
@@ -675,6 +751,7 @@ def check_paged(dev, gen, name, KV, G, kdt):
     bms, by = bound_ms(n_bytes, 4.0 * H * hd * tokens)
     return {"name": "paged_attention", "shape": name,
             "dtype": f"q bf16, pages {str(kdt)[6:]}",
+            "n_split": pa.splits(MP, ps),
             "max_abs_err": errs[torch.bfloat16][0], "rel_err": rel,
             "fp32_rel_err": rel32, "library_rel_err": lib_rel, "ms": ms,
             "eager_ms": eager, "plain_ms": plain, "library_ms": lib,
@@ -769,8 +846,11 @@ def profile_request(vla, frame, prompt) -> dict:
         by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    fp32_fwd = sum(e.time_range.elapsed_us() for e in work
+                   if "tf32::fwd_kernel<" in e.name) / 1e3
     return {"tokens": PROFILE_TOKENS, "phases": phases,
-            "device_ms_total": sum(by_name.values()), "top_kernels_ms": top}
+            "device_ms_total": sum(by_name.values()),
+            "flash_fwd_fp32_ms": fp32_fwd, "top_kernels_ms": top}
 
 
 def path_bounds(vla, prefill_tokens: int, valid_tokens: float) -> dict:
@@ -835,7 +915,7 @@ def run_path(dev, quantize, kernels):
               for _ in range(REQUESTS + 1)]
     prompt = vla.get_prompt(TASK, gripper_position=(128, 96))
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     rows = []
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -859,6 +939,16 @@ def run_path(dev, quantize, kernels):
     if act.shape != (7,) or not np.isfinite(act).all():
         raise AssertionError(f"bad predict_action {act!r}")
     launches = {k.name: k.launches for k in kernels}
+    launches_by = {k.name: dict(k.launches_by) for k in kernels}
+    # the towers' fp32 forward launches in this run: every request and
+    # predict_action encode one frame, each tower in depth - 1 blocks
+    encodes = len(frames) + 1
+    fp32_fwd = launches_by["flash_fwd"].get("float32", 0)
+    blocks = sum(v.depth - 1 for _, v in vla.cfg.vision)
+    if fp32_fwd != encodes * blocks:
+        raise AssertionError(f"{fp32_fwd} fp32 flash_fwd launches in "
+                             f"{encodes} encodes, not {blocks} each")
+    per_encode = fp32_fwd // encodes
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     profile = profile_request(vla, frames[1], prompt)
     log(f"{quantize or 'bf16'} profile " + json.dumps(profile))
@@ -872,7 +962,8 @@ def run_path(dev, quantize, kernels):
     summary = {
         "path": quantize or "bf16", "load_s": load_s,
         "load_peak_gb": load_peak_gb, "serving_peak_gb": peak_gb,
-        "launches": launches,
+        "launches": launches, "flash_fwd_launches_per_encode": per_encode,
+        "launches_by": launches_by,
         "encode_ms": float(np.mean([r["encode_ms"] for r in timed])),
         "prefill_ms": float(np.mean([r["prefill_ms"] for r in timed])),
         "decode_tok_s": float(np.mean([r["decode_tok_s"] for r in timed
@@ -1002,7 +1093,7 @@ def batched_run(dev, name, make_engine, submit, kernels, burst):
     serve(make_engine, submit)                              # warm-up
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     eng, out, rec = serve(make_engine, submit)
     launches = {k.name: k.launches for k in kernels}
     rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1087,7 +1178,7 @@ def batched_phase(dev, kernels):
                      max_pages_per_slot=8)
         serve(make, submit)                                  # warm-up
         for k in kernels:
-            k.launches = 0
+            k.reset_counts()
         _, out, rec = serve(make, submit)
         rec["launches"] = {k.name: k.launches for k in kernels}
         rec.pop("burst_ms")
@@ -1144,12 +1235,14 @@ def profile_step(run, step_ms: float) -> dict:
         run()
         torch.cuda.synchronize()
     by_name = {}
-    # the forward's bf16 tensor-core kernel (the Llama) and fp32 scalar
-    # kernel (the towers), and the two backward kernels
-    parts = (("flash_fwd_bf16", "::fwd_kernel<"),
-             ("flash_fwd_fp32", "flash_fwd_kernel<"),
+    # the forward's bf16 kernel (the Llama) and 3xTF32 kernel (fp32
+    # towers), the two backward kernels, the paged decode's two kernels
+    parts = (("flash_fwd_bf16", "tc::fwd_kernel<"),
+             ("flash_fwd_fp32", "tf32::fwd_kernel<"),
              ("flash_bwd_dq", "::dq_kernel<"),
-             ("flash_bwd_dkv", "::dkv_kernel<"))
+             ("flash_bwd_dkv", "::dkv_kernel<"),
+             ("paged_attention", "split_kernel<"),
+             ("paged_merge", "merge_kernel<"))
     attn = {key: 0.0 for key, _ in parts}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1241,7 +1334,7 @@ def align7b_phase(dev, kernels):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     state, m = step(state, batch)                 # warm-up; counts one step
     torch.cuda.synchronize(dev)
     launches = {k.name: k.launches for k in kernels}
@@ -1273,7 +1366,7 @@ def align7b_phase(dev, kernels):
     # profiled fused step.
     step_fused = make_train_step(cfg, tx, attn_impl="cuda_fused", **common)
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     state, m = step_fused(state, batch)           # warm-up; counts one step
     torch.cuda.synchronize(dev)
     fused_launches = {k.name: k.launches for k in kernels}
@@ -1392,7 +1485,7 @@ def vla_train_phase(dev, kernels):
         metrics = VLADiscreteMetrics(build_trackers(["jsonl"], "vla-train",
                                                     tmp))
         for k in kernels:
-            k.launches = 0
+            k.reset_counts()
         t0 = time.perf_counter()
         state = run_discrete_vla_training(
             vlm_cfg=cfg, state=state, train_step=step_fn,
@@ -1480,9 +1573,15 @@ def main(argv) -> int:
         "tc::dkv_kernel<128, false>": (1, 0, 128),
         "tc::dkv_kernel<128, true>": (1, 1, 128)})
     log("flash_bwd bf16 D128 resources " + json.dumps(bwd_res))
+    # (D, dtype code): bf16 at the training shape, 3xTF32 at every padding
     fwd_res = kernel_resources(fa.KERNEL, "emmax_flash_fwd_smem_bytes",
-                               {"tc::fwd_kernel<128>": (128,)})
-    log("flash_fwd bf16 D128 resources " + json.dumps(fwd_res))
+                               {"tc::fwd_kernel<128>": (128, 1),
+                                "tf32::fwd_kernel<64>": (64, 0),
+                                "tf32::fwd_kernel<72>": (72, 0),
+                                "tf32::fwd_kernel<128>": (128, 0)})
+    log("flash_fwd resources " + json.dumps(fwd_res))
+    paged_res = ptxas_usage(pa.KERNEL.build_log)     # static shared only
+    log("paged_attention resources " + json.dumps(paged_res))
     int4_res = kernel_resources(
         int4_matmul.KERNEL, "emmax_int4_matmul_smem_bytes",
         {name: (8 * int(name.split(", ")[1]),)
@@ -1527,6 +1626,19 @@ def main(argv) -> int:
     by_name = {r["name"]: r for r in train_kernels[:4]}   # Llama training
     step = align["launches_per_step"]
     prefill = flash[2]                        # the Llama prefill shape
+    phases = bf16["profile"].get("phases", {})
+    towers = {
+        "launches_per_encode": bf16["flash_fwd_launches_per_encode"],
+        "launches": bf16["launches_by"]["flash_fwd"],
+        "encode_busy_ms": phases.get("encode", {}).get("busy_ms"),
+        "profiled_request_ms": bf16["profile"].get("flash_fwd_fp32_ms"),
+        "resources": {n: r for n, r in fwd_res.items()
+                      if n.startswith("tf32::")},
+        "shapes": [{k: r[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by",
+                                      "bound_fp32_fma_ms", "max_abs_err",
+                                      "fp32_rel_err")}
+                   for r in flash if r["dtype"] == "float32"]}
     entries = [
         entry(by_name["flash_fwd_lse"], fa.KERNEL,
               "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
@@ -1536,7 +1648,8 @@ def main(argv) -> int:
                        "plain_ms": prefill["plain_ms"],
                        "library_ms": prefill["library_ms"],
                        "bound_ms": prefill["bound_ms"],
-                       "launches_int4_path": q4["launches"]["flash_fwd"]}),
+                       "launches_int4_path": q4["launches"]["flash_fwd"]},
+              towers_fp32=towers),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
               launches_path="align7b train step",
@@ -1563,6 +1676,9 @@ def main(argv) -> int:
               launches_path="full-width paged kernel run (int8 pages), "
                             "one burst of 64 steps",
               library_note=paged_kernels[1]["library_note"],
+              n_split=paged_kernels[1]["n_split"], resources=paged_res,
+              launch_note="one counted call launches split_kernel and "
+                          "merge_kernel",
               bf16_pages={k: paged_kernels[0][k] for k in
                           ("ms", "plain_ms", "library_ms", "bound_ms",
                            "max_abs_err")},

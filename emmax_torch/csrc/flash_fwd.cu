@@ -45,13 +45,35 @@
 // reach memory: NEG_INF * log2(e) overflows fp32). No atomics: a rerun
 // gives the same bits.
 //
-// fp32: the scalar kernel (namespace `scalar`; TF32 would not hold the
-// fp32 tolerance): one block of 128 threads per (q tile of 64 rows, head,
-// batch), both products as fp32 FMAs from shared memory on the CUDA cores
-// (bound by the 67 TFLOP/s fp32 rate). Each thread owns a 4x8 micro-tile
-// of the score tile (rows 4*rg.., cols cg+8j) and the same 4 rows x D/8
-// columns of the output; D is padded to 64, 72 or 128; shared rows are
-// padded by one float. It keeps P in fp32 for P V.
+// fp32: tensor-core kernel (namespace `tf32`), the same FlashAttention-2
+// forward on mma.sync m16n8k8 with tf32 operands, in 3xTF32: every operand
+// x is split as big = rna(x), small = rna(x - big) (csrc/mma.cuh's
+// split_tf32) and each product is taken as small*big + big*small +
+// big*big into fp32 accumulators, which keeps fp32's accuracy (one TF32
+// product alone is ~1e-3 off). P stays fp32, as JAX's fp32 kernel keeps
+// it. One block of 4 warps per (32 query rows, head, batch), so the towers
+// at batch 1 (L 256 / 261, 16 heads) launch 128 / 144 blocks for 132 SMs
+// and each block has a warp on each of the SM's 4 schedulers: warps 0 and
+// 1 (16 rows each) take the first 32 keys of every 64-key stage, warps 2
+// and 3 the other 32, each pair with its own online-softmax state, and the
+// second pair's state is merged into the first's at the end (in that
+// order, through shared memory). K/V stages are double-buffered with
+// 16-byte cp.async where rows allow it (D % 4 == 0, strides and bases
+// 16-byte aligned; 4-byte cp.async otherwise); fp32 rows are padded to DP
+// + 4 floats (DP + 4 = 4 mod 8), so
+// the 32-bit fragment reads of Q, K (rows g, columns t) and V (rows 2t,
+// columns g) hit 32 different banks. Q's split A fragments stay in
+// registers for DP <= 72 and are re-read and split from shared memory per
+// k-step at DP 128. P's C fragment feeds O += P V as the A fragment
+// without moving data: a lane holds keys 2t, 2t + 1 where the A fragment
+// wants k indices t, t + 4, so V's B fragment reads key rows in that
+// permuted order (k t <-> key 2t, k t + 4 <-> key 2t + 1). Masking, the
+// exact zeros, the LSE (natural-log units, NEG_INF sentinel), causal tile
+// skipping and the tile order are the bf16 kernel's. D is zero-padded
+// on-chip to 64, 72 or 128. Bound: at the towers' shapes the function is
+// ~64 operations per byte (SigLIP B1: 0.30 GFLOP over 4.7 MB), which the
+// 67 TFLOP/s of fp32 FMAs would make operation-bound (4.5 us); three TF32
+// products at 495 TFLOP/s take 1.8 us, near the 1.4 us of its bytes.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -60,214 +82,384 @@
 namespace {
 
 constexpr float NEG_INF = -2.3819763e38f;  // the JAX package's sentinel
+constexpr float LOG2E = 1.4426950408889634f;
 
-// ------------------------------------------------------ scalar (fp32) ---
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  const uint8_t* mask;
+  T* o;
+  float* lse;         // null or [B, Lq, H]
+  int H, Lq, S, D;
+  // strides in elements: (batch, row, head) of q, k, v, o; the mask's
+  // batch stride
+  long long st[13];
+  int causal, q_offset;
+  float sm_scale;
+  int vec;            // rows allow 16-byte loads
+};
 
-namespace scalar {
+// ---------------------------------------------------- 3xTF32 (fp32) ---
 
-constexpr int BQ = 64;      // query rows per block
-constexpr int BK = 64;      // keys per KV tile
-constexpr int NT = 128;     // threads per block
+namespace tf32 {
+
+using emmax::mma::cp_async_16;
+using emmax::mma::cp_async_ca;
+using emmax::mma::cp_async_commit;
+using emmax::mma::cp_async_wait;
+using emmax::mma::mma_1688_tf32;
+using emmax::mma::split_tf32;
+using emmax::tc::key_ok;
+
+constexpr int KH = 2;            // warp pairs: key halves of a stage
+constexpr int NW = 2 * KH;       // warps per block
+constexpr int NTH = 32 * NW;     // threads per block
+constexpr int TBQ = 32;          // query rows per block, 16 per warp
+constexpr int KW = 32;           // keys per warp per stage
+constexpr int TBK = KW * KH;     // keys per K/V stage
+constexpr int NK = KW / 8;       // key n-tiles per warp and stage
+
+// shared row length (floats): DP + 4 = 4 (mod 8), so rows g (or 2t) of a
+// fragment read start 4 * odd banks apart; a multiple of 4 floats, so
+// 16-byte cp.async destinations stay aligned
+template <int DP>
+__host__ __device__ constexpr int row_len() {
+  return DP + 4;
+}
 
 template <int DP>
 constexpr int smem_bytes() {
-  return (BQ * (DP + 1) + BK * (DP + 1) + BK * DP + BQ * (BK + 1)) *
-         (int)sizeof(float);
+  return (TBQ + 4 * TBK) * row_len<DP>() * 4 + 2 * TBK;
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-    float* __restrict__ o,
-    float* __restrict__ lse, int H, int Lq, int S, int D, long long q_sb,
-    long long q_sl, long long q_sh, long long k_sb, long long k_sl,
-    long long k_sh, long long v_sb, long long v_sl, long long v_sh,
-    long long o_sb, long long o_sl, long long o_sh, long long m_sb,
-    int causal, int q_offset, float sm_scale) {
-  constexpr int QS = DP + 1;  // padded row stride of the Q and K tiles
-  constexpr int PS = BK + 1;  // padded row stride of the P tile
-  constexpr int NC = DP / 8;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][QS]
-  float* Ks = Qs + BQ * QS;    // [BK][QS]
-  float* Vs = Ks + BK * QS;    // [BK][DP]
-  float* Ps = Vs + BK * DP;    // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;  // rows 4*rg .. 4*rg+3 of the tile
-  const int cg = tid & 7;   // columns cg + 8*j
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
-  const uint8_t* mb = kv_mask ? kv_mask + b * m_sb : nullptr;
-
-  for (int i = tid; i < BQ * DP; i += NT) {
-    const int r = i / DP, d = i - (i / DP) * DP;
-    float val = 0.f;
-    if (q0 + r < Lq && d < D) val = qb[(q0 + r) * q_sl + d];
-    Qs[r * QS + d] = val;
-  }
-
-  float m_i[4], l_i[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = __int_as_float(0xff800000);  // -inf
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  // causal: keys above the last query of this tile are never needed
-  int kv_end = S;
-  if (causal) kv_end = min(S, q_offset + q0 + BQ);
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // previous tile's K/V/P fully consumed
-    for (int i = tid; i < BK * DP; i += NT) {
+// rows [r0, r0 + R) of a [rows, D] fp32 slice -> shared [R][row_len],
+// zero past `rows` and in columns D..DP: 16-byte cp.async with `vec`, else
+// 4-byte cp.async, both zero-filling what is not read
+template <int R, int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long row_stride, int r0,
+                                          int rows, int D, bool vec) {
+  constexpr int ROW = row_len<DP>();
+  if (vec) {
+    constexpr int CH = DP / 4;
+    for (int i = threadIdx.x; i < R * CH; i += NTH) {
+      const int r = i / CH, c = i - (i / CH) * CH;
+      const bool in = r0 + r < rows && c * 4 < D;
+      cp_async_16(dst + r * ROW + c * 4,
+                  in ? src + (r0 + r) * row_stride + c * 4 : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DP; i += NTH) {
       const int r = i / DP, d = i - (i / DP) * DP;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + r < S && d < D) {
-        kv = kb[(k0 + r) * k_sl + d];
-        vv = vb[(k0 + r) * v_sl + d];
-      }
-      Ks[r * QS + d] = kv;
-      Vs[r * DP + d] = vv;
-    }
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qa[4], ka[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(rg * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ka[j] = Ks[(cg + 8 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-
-    bool ok[4][8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int kj = k0 + cg + 8 * j;
-      bool col_ok = kj < S;
-      if (col_ok && mb) col_ok = mb[kj] != 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + rg * 4 + i;
-        ok[i][j] = col_ok && (!causal || kj <= q_offset + qi);
-        s[i][j] = ok[i][j] ? s[i][j] * sm_scale : NEG_INF;
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
-      // the 8 threads of a row group are adjacent lanes
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // masked p is exactly 0, so a row with no valid key keeps l == 0
-        const float p = ok[i][j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(rg * 4 + i) * PS + cg + 8 * j] = p;
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l_i[i] = alpha * l_i[i] + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // P tile complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pa[4], va[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(rg * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) va[c] = Vs[kk * DP + cg + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pa[i], va[c], acc[i][c]);
-    }
-  }
-
-  float* ob = o + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
-    if (row >= Lq) continue;
-    const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;  // zeros if no key
-    if (lse && cg == 0)
-      lse[((long long)b * Lq + row) * H + h] =
-          m_i[i] + logf(l_i[i] > 0.f ? l_i[i] : 1.f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = cg + 8 * c;
-      if (d < D) ob[row * o_sl + d] = acc[i][c] * inv;
+      const bool in = r0 + r < rows && d < D;
+      cp_async_ca<4>(dst + r * ROW + d,
+                     in ? src + (r0 + r) * row_stride + d : src, in);
     }
   }
 }
 
+// the split A fragment (big, small) of rows r0.. of a shared tile, k-step kk
+template <int ROW>
+__device__ __forceinline__ void load_a(uint32_t (&big)[4],
+                                       uint32_t (&small)[4],
+                                       const float* tile, int r0, int kk,
+                                       int g, int t) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    split_tf32(tile[(r0 + g + 8 * (e & 1)) * ROW + 8 * kk + t + 4 * (e >> 1)],
+               big[e], small[e]);
+}
+
+// (NTH, 1): without the block count ptxas held DP 64 to 168 registers
+// (three blocks an SM) and spilled; with it, 180 and no spills
 template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* o, float* lse, int B, int H,
-                   int Lq, int S, int D, const long long* st, int causal,
-                   int q_offset, float sm_scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(NTH, 1) fwd_kernel(Args<float> a) {
+  constexpr int ROW = row_len<DP>();
+  constexpr int KS = DP / 8;            // k-steps over D = output n-tiles
+  constexpr bool QREG = DP <= 72;       // Q's split fragments in registers
+  constexpr int NDC = KS <= 9 ? KS : 8; // output n-tiles per MMA round
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);  // [TBQ][ROW]
+  float* Ks = Qs + TBQ * ROW;                      // [2][TBK][ROW]
+  float* Vs = Ks + 2 * TBK * ROW;                  // [2][TBK][ROW]
+  uint8_t* ms = reinterpret_cast<uint8_t*>(Vs + 2 * TBK * ROW);  // [2][TBK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 1;         // the warp's 16 query rows of the tile
+  const int kh = warp >> 1;        // the warp's 32 keys of each stage
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_qt = (a.Lq + TBQ - 1) / TBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * TBQ;  // last tile first
+  const long long* st = a.st;
+  const bool vec = a.vec != 0;
+
+  const float* qb = a.q + b * st[0] + h * st[2];
+  const float* kb = a.k + b * st[3] + h * st[5];
+  const float* vb = a.v + b * st[6] + h * st[8];
+  const uint8_t* mb = a.mask ? a.mask + b * st[12] : nullptr;
+
+  // causal: keys past the tile's last query are never loaded
+  int kv_end = a.S;
+  if (a.causal) kv_end = min(a.S, a.q_offset + min(q0 + TBQ, a.Lq));
+  const int n_kt = (kv_end + TBK - 1) / TBK;
+
+  load_tile<TBQ, DP>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
+  if (n_kt > 0) {
+    load_tile<TBK, DP>(Ks, kb, st[4], 0, a.S, a.D, vec);
+    load_tile<TBK, DP>(Vs, vb, st[7], 0, a.S, a.D, vec);
+    if (tid < TBK) ms[tid] = key_ok(a.S, mb, tid);
+  }
+  cp_async_commit();
+
+  // this lane's query rows qr0 and qr0 + 8 (of the warp's 16)
+  const int qr0 = q0 + rw * 16 + g;
+  const float scale2 = a.sm_scale * LOG2E;
+  const float NEG = __int_as_float(0xff800000);  // -inf
+  const float* Qw = Qs + rw * 16 * ROW;
+
+  uint32_t qbig[QREG ? KS : 1][4], qsmall[QREG ? KS : 1][4];
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // raw-score max, sum of p
+
+  cp_async_wait<0>();
+  __syncthreads();  // Q and tile 0 landed
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      load_a<ROW>(qbig[kk], qsmall[kk], Qw, 0, kk, g, t);
+  }
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int buf = it & 1;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile `it` landed; every warp is done with it - 1
+    }
+    uint8_t m_next = 0;
+    if (it + 1 < n_kt) {
+      const int nb = (buf ^ 1) * TBK * ROW, k1 = (it + 1) * TBK;
+      load_tile<TBK, DP>(Ks + nb, kb, st[4], k1, a.S, a.D, vec);
+      load_tile<TBK, DP>(Vs + nb, vb, st[7], k1, a.S, a.D, vec);
+      if (tid < TBK) m_next = key_ok(a.S, mb, k1 + tid);
+    }
+    cp_async_commit();
+    // this warp's keys k0 .. k0 + 31 of the stage
+    const int k0 = it * TBK + kh * KW;
+    const float* Kt = Ks + (buf * TBK + kh * KW) * ROW;
+    const float* Vt = Vs + (buf * TBK + kh * KW) * ROW;
+    const uint8_t* mt = ms + buf * TBK + kh * KW;
+
+    // S = Q K^T: this warp's 16 rows x 32 keys, raw (unscaled) fp32; K's B
+    // fragment is its row (key) 8n + g, dims 8kk + t and + 4
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ab[e] = qbig[kk][e];
+          as[e] = qsmall[kk][e];
+        }
+      } else {
+        load_a<ROW>(ab, as, Qw, 0, kk, g, t);
+      }
+      uint32_t bb[NK][2], bs[NK][2];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          split_tf32(Kt[(8 * n + g) * ROW + 8 * kk + t + 4 * x], bb[n][x],
+                     bs[n][x]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) mma_1688_tf32(s[n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) mma_1688_tf32(s[n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) mma_1688_tf32(s[n], ab, bb[n][0], bb[n][1]);
+    }
+
+    // masked scores -> -inf; the row max over the quad's 4 lanes
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kc = 8 * n + 2 * t + (e & 1);
+        const bool vis =
+            mt[kc] && (!a.causal || k0 + kc <= a.q_offset + qr0 + 8 * i);
+        s[n][e] = vis ? s[n][e] : NEG;
+        mx[i] = fmaxf(mx[i], s[n][e]);
+      }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with no valid key yet keeps m = -inf: subtract 0, not -inf
+      mu[i] = m_new == NEG ? 0.f : m_new * scale2;
+      alpha[i] = m_new == NEG ? 0.f : exp2f((m[i] - m_new) * scale2);
+      m[i] = m_new;
+    }
+
+    // P = exp2(s * scale2 - m * scale2) in fp32 (masked: exp2(-inf) = 0)
+    // and its row sums
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(fmaf(s[n][e], scale2, -mu[e >> 1]));
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = alpha[i] * l[i] + rs[i];
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P V per 8 keys: P's C fragment {(g, 2t), (g, 2t+1), (g+8, 2t),
+    // (g+8, 2t+1)} is the A fragment {a0 (g, k t), a1 (g+8, t), a2 (g,
+    // t+4), a3 (g+8, t+4)} with k t <-> key 2t, k t + 4 <-> key 2t + 1;
+    // V's B fragment reads key rows 8n + 2t and 8n + 2t + 1, column 8d + g
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[n][0], pb[0], ps[0]);
+      split_tf32(s[n][2], pb[1], ps[1]);
+      split_tf32(s[n][1], pb[2], ps[2]);
+      split_tf32(s[n][3], pb[3], ps[3]);
+      const float* v0 = Vt + (8 * n + 2 * t) * ROW + g;
+#pragma unroll
+      for (int d0 = 0; d0 < KS; d0 += NDC) {
+        uint32_t vbb[NDC][2], vbs[NDC][2];
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            if (d0 + j < KS)
+              split_tf32(v0[x * ROW + 8 * (d0 + j)], vbb[j][x], vbs[j][x]);
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (d0 + j < KS)
+            mma_1688_tf32(acc[d0 + j], ps, vbb[j][0], vbb[j][1]);
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (d0 + j < KS)
+            mma_1688_tf32(acc[d0 + j], pb, vbs[j][0], vbs[j][1]);
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (d0 + j < KS)
+            mma_1688_tf32(acc[d0 + j], pb, vbb[j][0], vbb[j][1]);
+      }
+    }
+    if (it + 1 < n_kt && tid < TBK) ms[(buf ^ 1) * TBK + tid] = m_next;
+  }
+
+  // merge the key halves' states into warp pair 0, in key-half order,
+  // through the K buffers: entry j of lane (pair kh, row warp rw) at
+  // ((kh - 1) * XS + j) * 64 + rw * 32 + lane
+  constexpr int XS = 4 + 4 * KS;   // m[2], l[2], acc[KS][4]
+  static_assert((KH - 1) * XS * 64 <= 2 * TBK * ROW, "merge fits in K");
+  __syncthreads();                 // every warp is done with the tiles
+  float* xs = Ks + rw * 32 + lane;
+  if (kh > 0) {
+    float* x = xs + (kh - 1) * XS * 64;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      x[i * 64] = m[i];
+      x[(2 + i) * 64] = l[i];
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[(4 + 4 * n + e) * 64] = acc[n][e];
+  }
+  __syncthreads();
+  if (kh > 0) return;
+  for (int p = 1; p < KH; ++p) {
+    const float* x = xs + (p - 1) * XS * 64;
+    float c1[2], c2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m2 = x[i * 64], l2 = x[(2 + i) * 64];
+      const float mn = fmaxf(m[i], m2);
+      // a half that saw no valid key has m = -inf: weight 0, not NaN
+      c1[i] = m[i] == NEG ? 0.f : exp2f((m[i] - mn) * scale2);
+      c2[i] = m2 == NEG ? 0.f : exp2f((m2 - mn) * scale2);
+      l[i] = l[i] * c1[i] + l2 * c2[i];
+      m[i] = mn;
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = acc[n][e] * c1[e >> 1] +
+                    x[(4 + 4 * n + e) * 64] * c2[e >> 1];
+  }
+
+  float* ob = a.o + b * st[9] + h * st[11];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qr0 + 8 * i;
+    if (row >= a.Lq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // zeros if no key
+    if (a.lse && t == 0)
+      a.lse[((long long)b * a.Lq + row) * a.H + h] =
+          l[i] > 0.f ? m[i] * a.sm_scale + logf(l[i]) : NEG_INF;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int d = 8 * n + 2 * t + x;
+        if (d < a.D) ob[row * st[10] + d] = acc[n][2 * i + x] * inv;
+      }
+  }
+}
+
+template <int DP>
+cudaError_t launch(const Args<float>& a, int B, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DP><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), mask, static_cast<float*>(o), lse, H, Lq,
-      S, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], causal, q_offset, sm_scale);
+  dim3 grid(a.H, B, (a.Lq + TBQ - 1) / TBQ);
+  fwd_kernel<DP><<<grid, NTH, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const uint8_t* mask, void* o, float* lse, int B, int H,
-                     int Lq, int S, int D, const long long* st, int causal,
-                     int q_offset, float sm_scale, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<64>(q, k, v, mask, o, lse, B, H, Lq, S, D, st, causal,
-                      q_offset, sm_scale, stream);
-  if (D <= 72)
-    return launch<72>(q, k, v, mask, o, lse, B, H, Lq, S, D, st, causal,
-                      q_offset, sm_scale, stream);
-  if (D <= 128)
-    return launch<128>(q, k, v, mask, o, lse, B, H, Lq, S, D, st, causal,
-                       q_offset, sm_scale, stream);
+int smem_of(int D) {
+  if (D <= 64) return smem_bytes<64>();
+  if (D <= 72) return smem_bytes<72>();
+  if (D <= 128) return smem_bytes<128>();
+  return -1;
+}
+
+cudaError_t dispatch(const Args<float>& a, int B, cudaStream_t s) {
+  if (a.D <= 64) return launch<64>(a, B, s);
+  if (a.D <= 72) return launch<72>(a, B, s);
+  if (a.D <= 128) return launch<128>(a, B, s);
   return cudaErrorInvalidValue;
 }
 
-}  // namespace scalar
+}  // namespace tf32
 
 // --------------------------------------------------- tensor core (bf16) ---
 
@@ -289,23 +481,6 @@ constexpr int NW = 4;            // warps per block
 constexpr int NTH = 32 * NW;     // threads per block
 constexpr int TBQ = 16 * NW;     // query rows per block, 16 per warp
 constexpr int TBK = 64;          // keys per K/V stage
-constexpr float LOG2E = 1.4426950408889634f;
-
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const uint8_t* mask;
-  bf16* o;
-  float* lse;         // null or [B, Lq, H]
-  int H, Lq, S, D;
-  // strides in elements: (batch, row, head) of q, k, v, o; the mask's
-  // batch stride
-  long long st[13];
-  int causal, q_offset;
-  float sm_scale;
-  int vec;            // rows allow 16-byte loads
-};
 
 template <int DP>
 constexpr int smem_bytes() {
@@ -313,7 +488,7 @@ constexpr int smem_bytes() {
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NTH) fwd_kernel(Args a) {
+__global__ void __launch_bounds__(NTH) fwd_kernel(Args<bf16> a) {
   constexpr int ROW = row_len<DP>();
   constexpr int NT = DP / 8;     // output n-tiles
   constexpr int KS = DP / 16;    // k-steps over D
@@ -485,7 +660,7 @@ __global__ void __launch_bounds__(NTH) fwd_kernel(Args a) {
 }
 
 template <int DP>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+cudaError_t launch(const Args<bf16>& a, int B, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -503,7 +678,7 @@ int smem_of(int D) {
   return -1;
 }
 
-cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
+cudaError_t dispatch(const Args<bf16>& a, int B, cudaStream_t s) {
   if (a.D <= 64) return launch<64>(a, B, s);
   if (a.D <= 80) return launch<80>(a, B, s);
   if (a.D <= 112) return launch<112>(a, B, s);
@@ -514,9 +689,37 @@ cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
 }  // namespace tc
 }  // namespace
 
+namespace {
+
+template <typename T, int E>
+Args<T> make_args(const void* q, const void* k, const void* v,
+                  const uint8_t* mask, void* o, void* lse, int H, int Lq,
+                  int S, int D, const long long* strides, int causal,
+                  int q_offset, float sm_scale) {
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.mask = mask;
+  a.o = static_cast<T*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.H = H;
+  a.Lq = Lq;
+  a.S = S;
+  a.D = D;
+  for (int i = 0; i < 13; ++i) a.st[i] = strides[i];
+  a.causal = causal;
+  a.q_offset = q_offset;
+  a.sm_scale = sm_scale;
+  a.vec = emmax::tc::rows_16b<E>(D, strides, {q, k, v});
+  return a;
+}
+
+}  // namespace
+
 // strides[13]: q (b, l, h), k (b, l, h), v (b, l, h), o (b, l, h), mask (b);
 // all in elements. `lse` is null (serving) or fp32 [B, Lq, H] contiguous.
-// bf16 runs the tensor-core kernel, fp32 the scalar one.
+// bf16 runs the bf16 tensor-core kernel, fp32 the 3xTF32 one.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int emmax_flash_fwd(const void* q, const void* k, const void* v,
                                const void* kv_mask, void* o, void* lse,
@@ -527,34 +730,23 @@ extern "C" int emmax_flash_fwd(const void* q, const void* k, const void* v,
   const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == emmax::kBFloat16) {
-    tc::Args a;
-    a.q = static_cast<const __nv_bfloat16*>(q);
-    a.k = static_cast<const __nv_bfloat16*>(k);
-    a.v = static_cast<const __nv_bfloat16*>(v);
-    a.mask = mask;
-    a.o = static_cast<__nv_bfloat16*>(o);
-    a.lse = static_cast<float*>(lse);
-    a.H = H;
-    a.Lq = Lq;
-    a.S = S;
-    a.D = D;
-    for (int i = 0; i < 13; ++i) a.st[i] = strides[i];
-    a.causal = causal;
-    a.q_offset = q_offset;
-    a.sm_scale = sm_scale;
-    a.vec = emmax::tc::rows_16b(D, strides, {q, k, v});
-    err = tc::dispatch(a, B, s);
-  } else if (dtype == emmax::kFloat32) {
-    err = scalar::dispatch(q, k, v, mask, o, static_cast<float*>(lse), B,
-                           H, Lq, S, D, strides, causal, q_offset, sm_scale,
-                           s);
-  } else {
+  if (dtype == emmax::kBFloat16)
+    err = tc::dispatch(make_args<__nv_bfloat16, 8>(
+                           q, k, v, mask, o, lse, H, Lq, S, D, strides,
+                           causal, q_offset, sm_scale),
+                       B, s);
+  else if (dtype == emmax::kFloat32)
+    err = tf32::dispatch(make_args<float, 4>(q, k, v, mask, o, lse, H, Lq,
+                                             S, D, strides, causal,
+                                             q_offset, sm_scale),
+                         B, s);
+  else
     err = cudaErrorInvalidValue;
-  }
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory (bytes) of the bf16 kernel at head dim D; -1 past
-// 128.
-extern "C" int emmax_flash_fwd_smem_bytes(int D) { return tc::smem_of(D); }
+// Dynamic shared memory (bytes) of the kernel for `dtype` at head dim D;
+// -1 past 128.
+extern "C" int emmax_flash_fwd_smem_bytes(int D, int dtype) {
+  return dtype == emmax::kFloat32 ? tf32::smem_of(D) : tc::smem_of(D);
+}

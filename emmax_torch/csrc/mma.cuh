@@ -14,6 +14,16 @@
 // So the C fragments of two neighbouring 16 x 8 tiles, rounded to bf16
 // and packed pairwise, are the A fragment of their 16 x 16 tile.
 //
+// Fragment layouts of mma.m16n8k8 with tf32 inputs (PTX ISA, "Matrix
+// Fragments for mma.m16n8k8", .tf32), one 32-bit element a register:
+//   A (16 x 8, row-major): a[0] = (g, t), a[1] = (g + 8, t),
+//     a[2] = (g, t + 4), a[3] = (g + 8, t + 4)
+//   B (8 x 8, "col"): b[0] = (k t, n g), b[1] = (k t + 4, n g)
+//   C / D (16 x 8 fp32): as for m16n8k16 above.
+// So a C fragment's columns 2t, 2t + 1 are not an A fragment's t, t + 4:
+// a kernel that feeds C back as A reads the other operand's k rows in the
+// permuted order k t <-> 2t, k t + 4 <-> 2t + 1 instead of moving data.
+//
 // ldmatrix .x4 loads four 8 x 8 bf16 matrices; lanes 8j..8j+7 give the
 // shared addresses of matrix j's rows (16 bytes each) and every lane gets,
 // in r[j], row g, columns 2t..2t+1 of matrix j; with .trans the
@@ -41,6 +51,36 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32; the
+// operands are tf32 values in b32 registers (see tf32_rna)
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cvt.rna.tf32.f32: x rounded to tf32 (10 explicit mantissa bits; the 13
+// low bits of the fp32 pattern cleared, ties away from zero)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the 3xTF32 split x = big + small, big = rna(x), small = rna(x - big):
+// big * big + big * small + small * big keeps fp32's accuracy on the
+// tensor cores (the dropped small * small is ~2^-22 of the product)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
 // ldmatrix.sync.aligned.m8n8.x4.shared.b16; `row` is this lane's row

@@ -26,42 +26,88 @@
 // tensor cores become the limit, so the least time is the valid pages'
 // bytes over 3.35 TB/s.
 //
-// Design: one block of 8 warps per (row b, KV head k, chunk of <= 8 query
-// heads), so each (row, KV head)'s pages are read by one block, once, for
-// all of its query heads; the G query heads' q rows sit in registers. The
-// block reads its own page ids from page_indices[b], only the first
-// ceil(length / ps) of them (entries past a row's length, -1 or a trash
-// page, are never touched), clamped into [0, P) as an XLA gather clamps.
-// The warps stride over the row's tokens; inside a warp each token takes
-// lpt = next_pow2(hd / 8) lanes of 8 dims each (one 16-byte load per lane
-// in bf16), so a warp reads 32 / lpt neighbouring tokens' rows, which sit
-// contiguously in a page. Each lane group keeps its own online-softmax
-// state (running max m, sum l, fp32 accumulator for its 8 dims) for the
-// tokens it saw; the groups of a warp merge with shuffles, the warps in
-// shared memory, and normalisation is deferred to the one store.
+// Design (flash-decoding): the grid is (KV head x chunk of <= GC query
+// heads, row b, split), where a split is a range of `pps` pages of the
+// row's table; the wrapper picks pps from ps (ops/paged_attention.py's
+// `split_pages`: ranges of at least 128 tokens) and n_split = ceil(MP /
+// pps) follows, never from the lengths, so nothing is read back to the
+// host and the launches can be captured in a CUDA graph. A block of 4 warps reads its own page ids, only those of
+// tokens below the row's length (entries past it, -1 or a trash page, are
+// never touched), clamped into [0, P) as an XLA gather clamps. Inside a
+// warp each token takes `lpt` lanes of EL dims each, one 16-byte load per
+// lane for every page dtype (fp32 4 dims, bf16 8, int8 16; int8 rows of a
+// head dim that is not a multiple of 16 take 8-byte loads), so a warp
+// reads 32 / lpt neighbouring tokens' rows; each lane group has kUnroll
+// tokens' K and V chunks in flight before it uses the first. An int8
+// row's two scales are read once per token, by the group's first lane, and
+// broadcast. The GC query heads of a KV head share the block, so a row is
+// read once for all of them (int8 keeps GC <= 4 to hold its 16 dims per
+// lane in registers; G > GC takes ceil(G / GC) chunks). Each lane group
+// keeps an online-softmax state (running max m, sum l, fp32 accumulator of
+// its dims) per query head; the groups of a warp merge with shuffles, the
+// warps in shared memory. The block stores its fp32 partial (m, l,
+// acc[hd]) into a workspace (a split wholly past the row's length stores
+// m = -inf, l = 0), and `merge_kernel` combines the n_split partials of
+// each (row, head) in split order, with `rescale`'s guard for empty ones,
+// and rounds once; with one split that is the block's own normalised sum.
+// No atomics: a rerun gives the same bits.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;          // warps per block
-constexpr int kDims = 8;           // head dims per lane
+constexpr int kWarps = 4;          // warps per block
+constexpr int kUnroll = 4;         // tokens per lane group in flight
 constexpr int kMaxHeadDim = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-// 8 consecutive elements of a row -> fp32 (16-, 32- or 8-byte loads)
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const float* k_scale;   // null unless int8 pages
+  const float* v_scale;
+  const int* lengths;
+  const int* page_indices;
+  void* out;
+  float* ws;              // m, l [n_split, B, H], acc [n_split, B, H, hd]
+  int B, H, G, P, ps, MP, hd, lpt, pps, n_split;
+};
+
+// one lane's chunk of a row: EL elements of T in 16 (or 8) bytes
+template <typename T, int EL>
+struct Chunk {
+  static constexpr int kBytes = EL * (int)sizeof(T);
+  static_assert(kBytes == 16 || kBytes == 8, "16- or 8-byte chunks");
+  using Raw = typename std::conditional<kBytes == 16, uint4, uint2>::type;
+};
+
+template <typename T, int EL>
+__device__ __forceinline__ typename Chunk<T, EL>::Raw load_chunk(
+    const T* p) {
+  return *reinterpret_cast<const typename Chunk<T, EL>::Raw*>(p);
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// a chunk's EL elements -> fp32
+template <int EL>
+__device__ __forceinline__ void to_f32(const uint4& r, const float*,
+                                       float (&out)[EL]) {
+  static_assert(EL == 4, "fp32 chunks hold 4 elements");
+  out[0] = __uint_as_float(r.x);
+  out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z);
+  out[3] = __uint_as_float(r.w);
+}
+
+template <int EL>
+__device__ __forceinline__ void to_f32(const uint4& r, const __nv_bfloat16*,
+                                       float (&out)[EL]) {
+  static_assert(EL == 8, "bf16 chunks hold 8 elements");
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -70,11 +116,13 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void load8(const int8_t* p, float* out) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+template <int EL, typename R>
+__device__ __forceinline__ void to_f32(const R& r, const int8_t*,
+                                       float (&out)[EL]) {
+  static_assert(EL * 1 == sizeof(R), "int8 chunks hold 16 or 8 elements");
+  const int8_t* c = reinterpret_cast<const int8_t*>(&r);
 #pragma unroll
-  for (int i = 0; i < kDims; ++i) out[i] = static_cast<float>(c[i]);
+  for (int i = 0; i < EL; ++i) out[i] = static_cast<float>(c[i]);
 }
 
 // weight of a softmax state with running max m against the merged max mn
@@ -82,98 +130,157 @@ __device__ __forceinline__ float rescale(float m, float mn) {
   return m == -INFINITY ? 0.f : expf(m - mn);
 }
 
-template <typename TQ, typename TKV, int GC>
-__global__ void __launch_bounds__(kWarps * 32) paged_attention_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ lengths,
-    const int* __restrict__ page_indices, TQ* __restrict__ out, int H, int G,
-    int P, int ps, int MP, int hd, int lpt) {
+template <typename TQ, typename TKV, int GC, int EL>
+__global__ void __launch_bounds__(kWarps * 32) split_kernel(Args a) {
+  using Raw = typename Chunk<TKV, EL>::Raw;
   __shared__ float sm_m[kWarps][GC];
   __shared__ float sm_l[kWarps][GC];
   __shared__ float sm_acc[kWarps][GC][kMaxHeadDim];
 
-  const int chunks = (G + GC - 1) / GC;
+  const int chunks = (a.G + GC - 1) / GC;
   const int kv = blockIdx.x / chunks;
   const int g0 = (blockIdx.x % chunks) * GC;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int lpt = a.lpt, hd = a.hd, ps = a.ps;
   const int tpw = 32 / lpt;               // tokens per warp per step
   const int grp = lane / lpt;             // this lane's token in the step
-  const int d0 = (lane % lpt) * kDims;    // this lane's first head dim
+  const int src = grp * lpt;              // the group's first lane
+  const int d0 = (lane - src) * EL;       // this lane's first head dim
   const bool dims = d0 < hd;              // lanes past hd hold zeros
-  const int len = min(max(lengths[b], 0), MP * ps);
+  const int len = min(max(a.lengths[b], 0), a.MP * ps);
+  const int t0 = split * a.pps * ps;
+  const int t1 = min(len, t0 + a.pps * ps);
+  const size_t bh0 = (size_t)b * a.H + (size_t)kv * a.G + g0;  // head g0
+  const size_t plane = (size_t)a.n_split * a.B * a.H;          // ws plane
 
-  float qr[GC][kDims];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (dims && g0 + g < G) {
-      load8(q + ((size_t)b * H + (size_t)kv * G + g0 + g) * hd + d0, qr[g]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) qr[g][j] = 0.f;
+  if (t0 >= t1) {   // nothing of this row in this split (uniform per block)
+    for (int idx = threadIdx.x; idx < GC * hd; idx += blockDim.x) {
+      const int g = idx / hd, d = idx - g * hd;
+      if (g0 + g >= a.G) continue;
+      const size_t w = (size_t)split * a.B * a.H + bh0 + g;
+      if (d == 0) {
+        a.ws[w] = -INFINITY;
+        a.ws[plane + w] = 0.f;
+      }
+      a.ws[2 * plane + w * hd + d] = 0.f;
     }
+    return;
   }
 
-  float m[GC], l[GC], acc[GC][kDims];
+  float qr[GC][EL];
+  const TQ* q = static_cast<const TQ*>(a.q);
+#pragma unroll
+  for (int g = 0; g < GC; ++g)
+#pragma unroll
+    for (int j = 0; j < EL; ++j)
+      qr[g][j] = dims && g0 + g < a.G
+                     ? emmax::to_f32<TQ>(q[(bh0 + g) * hd + d0 + j])
+                     : 0.f;
+
+  float m[GC], l[GC], acc[GC][EL];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[g][j] = 0.f;
+    for (int j = 0; j < EL; ++j) acc[g][j] = 0.f;
   }
 
-  const size_t head_rows = (size_t)P * ps;   // token rows per KV head
-  const TKV* kh = k_pages + (size_t)kv * head_rows * hd;
-  const TKV* vh = v_pages + (size_t)kv * head_rows * hd;
-  const int* table = page_indices + (size_t)b * MP;
+  const size_t head_rows = (size_t)a.P * ps;   // token rows per KV head
+  const TKV* kh = static_cast<const TKV*>(a.k_pages) + kv * head_rows * hd;
+  const TKV* vh = static_cast<const TKV*>(a.v_pages) + kv * head_rows * hd;
+  const int* table = a.page_indices + (size_t)b * a.MP;
+  const bool quant = a.k_scale != nullptr;
 
   // the loop bound depends on the warp only, so every lane takes part in
-  // every shuffle; lanes whose token is past the length skip the update
-  for (int base = warp * tpw; base < len; base += kWarps * tpw) {
-    const int t = base + grp;
-    const bool live = t < len;
-    float kr[kDims], vr[kDims];
-    float ks = 1.f, vs = 1.f;
+  // every shuffle; a token past the split's end is not live
+  for (int base = t0 + warp * tpw * kUnroll; base < t1;
+       base += kWarps * tpw * kUnroll) {
+    Raw kr[kUnroll], vr[kUnroll];
+    float ks[kUnroll], vs[kUnroll];
+    bool live[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) kr[j] = vr[j] = 0.f;
-    if (live) {
-      const int pid = min(max(table[t / ps], 0), P - 1);
-      const size_t row = (size_t)pid * ps + t % ps;
-      if (dims) {
-        load8(kh + row * hd + d0, kr);
-        load8(vh + row * hd + d0, vr);
-      }
-      if (k_scale != nullptr) {
-        ks = k_scale[(size_t)kv * head_rows + row] / 127.5f;
-        vs = v_scale[(size_t)kv * head_rows + row] / 127.5f;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = base + u * tpw + grp;
+      live[u] = t < t1;
+      kr[u] = vr[u] = Raw{};
+      ks[u] = vs[u] = 1.f;
+      if (live[u]) {
+        const int pid = min(max(table[t / ps], 0), a.P - 1);
+        const size_t row = (size_t)pid * ps + t % ps;
+        if (dims) {
+          kr[u] = load_chunk<TKV, EL>(kh + row * hd + d0);
+          vr[u] = load_chunk<TKV, EL>(vh + row * hd + d0);
+        }
+        if (quant && lane == src) {
+          ks[u] = a.k_scale[kv * head_rows + row];
+          vs[u] = a.v_scale[kv * head_rows + row];
+        }
       }
     }
-    float s[GC];
+    if (quant) {
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) dot = fmaf(qr[g][j], kr[j], dot);
-      for (int o = lpt >> 1; o > 0; o >>= 1)
-        dot += __shfl_xor_sync(kFull, dot, o);
-      s[g] = dot * ks;
+      for (int u = 0; u < kUnroll; ++u) {
+        ks[u] = __shfl_sync(kFull, ks[u], src) / 127.5f;
+        vs[u] = __shfl_sync(kFull, vs[u], src) / 127.5f;
+      }
     }
-    if (live) {
+
+    // scores: each lane's partial dot, summed over the group's lanes
+    float s[GC][kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float kf[EL];
+      to_f32<EL>(kr[u], (const TKV*)nullptr, kf);
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
-        const float mn = fmaxf(m[g], s[g]);
-        const float c = rescale(m[g], mn);
-        const float p = expf(s[g] - mn);
-        l[g] = l[g] * c + p;
-        const float pv = p * vs;
+        float dot = 0.f;
 #pragma unroll
-        for (int j = 0; j < kDims; ++j)
-          acc[g][j] = fmaf(acc[g][j], c, pv * vr[j]);
-        m[g] = mn;
+        for (int j = 0; j < EL; ++j) dot = fmaf(qr[g][j], kf[j], dot);
+        s[g][u] = dot;
       }
+    }
+#pragma unroll
+    for (int g = 0; g < GC; ++g)
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        for (int o = lpt >> 1; o > 0; o >>= 1)
+          s[g][u] += __shfl_xor_sync(kFull, s[g][u], o);
+        s[g][u] *= ks[u];
+      }
+
+    // the online softmax over this step's live tokens
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      float mn = m[g];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (live[u]) mn = fmaxf(mn, s[g][u]);
+      const float c = rescale(m[g], mn);
+      float ps_sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        s[g][u] = live[u] ? expf(s[g][u] - mn) : 0.f;   // p
+        ps_sum += s[g][u];
+        s[g][u] *= vs[u];
+      }
+      l[g] = l[g] * c + ps_sum;
+      m[g] = mn;
+#pragma unroll
+      for (int j = 0; j < EL; ++j) acc[g][j] *= c;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float vf[EL];
+      to_f32<EL>(vr[u], (const TKV*)nullptr, vf);
+#pragma unroll
+      for (int g = 0; g < GC; ++g)
+#pragma unroll
+        for (int j = 0; j < EL; ++j)
+          acc[g][j] = fmaf(s[g][u], vf[j], acc[g][j]);
     }
   }
 
@@ -187,7 +294,7 @@ __global__ void __launch_bounds__(kWarps * 32) paged_attention_kernel(
       const float c1 = rescale(m[g], mn);
       const float c2 = rescale(m2, mn);
 #pragma unroll
-      for (int j = 0; j < kDims; ++j) {
+      for (int j = 0; j < EL; ++j) {
         const float a2 = __shfl_xor_sync(kFull, acc[g][j], o);
         acc[g][j] = acc[g][j] * c1 + a2 * c2;
       }
@@ -200,7 +307,8 @@ __global__ void __launch_bounds__(kWarps * 32) paged_attention_kernel(
     for (int g = 0; g < GC; ++g) {
       if (dims) {
 #pragma unroll
-        for (int j = 0; j < kDims; ++j) sm_acc[warp][g][d0 + j] = acc[g][j];
+        for (int j = 0; j < EL; ++j)
+          if (d0 + j < hd) sm_acc[warp][g][d0 + j] = acc[g][j];
       }
       if (lane == 0) {
         sm_m[warp][g] = m[g];
@@ -210,11 +318,11 @@ __global__ void __launch_bounds__(kWarps * 32) paged_attention_kernel(
   }
   __syncthreads();
 
-  // merge the warps; one store per output element
+  // merge the warps into this split's partial
   for (int idx = threadIdx.x; idx < GC * hd; idx += blockDim.x) {
     const int g = idx / hd;
     const int d = idx - g * hd;
-    if (g0 + g >= G) continue;
+    if (g0 + g >= a.G) continue;
     float mx = -INFINITY;
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
     float den = 0.f, num = 0.f;
@@ -223,97 +331,120 @@ __global__ void __launch_bounds__(kWarps * 32) paged_attention_kernel(
       den += sm_l[w][g] * c;
       num += sm_acc[w][g][d] * c;
     }
-    out[((size_t)b * H + (size_t)kv * G + g0 + g) * hd + d] =
+    const size_t w = (size_t)split * a.B * a.H + bh0 + g;
+    if (d == 0) {
+      a.ws[w] = mx;
+      a.ws[plane + w] = den;
+    }
+    a.ws[2 * plane + w * hd + d] = num;
+  }
+}
+
+// out[b, h] from the n_split partials of (b, h), in split order
+template <typename TQ>
+__global__ void __launch_bounds__(128) merge_kernel(Args a) {
+  const size_t i = (size_t)blockIdx.y * a.H + blockIdx.x;   // b * H + h
+  const size_t bh = (size_t)a.B * a.H;
+  const size_t plane = (size_t)a.n_split * bh;
+  const float* wm = a.ws;
+  const float* wl = a.ws + plane;
+  const float* wacc = a.ws + 2 * plane;
+  float mx = -INFINITY;
+  for (int s = 0; s < a.n_split; ++s) mx = fmaxf(mx, wm[s * bh + i]);
+  float den = 0.f;
+  for (int s = 0; s < a.n_split; ++s)
+    den += wl[s * bh + i] * rescale(wm[s * bh + i], mx);
+  for (int d = threadIdx.x; d < a.hd; d += blockDim.x) {
+    float num = 0.f;
+    for (int s = 0; s < a.n_split; ++s)
+      num += wacc[(s * bh + i) * a.hd + d] * rescale(wm[s * bh + i], mx);
+    static_cast<TQ*>(a.out)[i * a.hd + d] =
         emmax::from_f32<TQ>(den > 0.f ? num / den : 0.f);
   }
 }
 
-template <typename TQ, typename TKV, int GC>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const float* k_scale, const float* v_scale,
-                   const int* lengths, const int* page_indices, void* out,
-                   int B, int H, int KV, int P, int ps, int MP, int hd,
-                   int lpt, cudaStream_t stream) {
-  const int G = H / KV;
-  const dim3 grid(KV * ((G + GC - 1) / GC), B);
-  paged_attention_kernel<TQ, TKV, GC><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
-      static_cast<const TKV*>(v_pages), k_scale, v_scale, lengths,
-      page_indices, static_cast<TQ*>(out), H, G, P, ps, MP, hd, lpt);
+template <typename TQ, typename TKV, int GC, int EL>
+cudaError_t launch(const Args& a, int KV, cudaStream_t stream) {
+  const dim3 grid(KV * ((a.G + GC - 1) / GC), a.B, a.n_split);
+  split_kernel<TQ, TKV, GC, EL><<<grid, kWarps * 32, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_kernel<TQ><<<dim3(a.H, a.B), 128, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t dispatch_g(const void* q, const void* k_pages,
-                       const void* v_pages, const float* k_scale,
-                       const float* v_scale, const int* lengths,
-                       const int* page_indices, void* out, int B, int H,
-                       int KV, int P, int ps, int MP, int hd, int lpt,
-                       cudaStream_t stream) {
-  const int G = H / KV;
-#define EMMAX_PAGED_LAUNCH(GC)                                              \
-  return launch<TQ, TKV, GC>(q, k_pages, v_pages, k_scale, v_scale,         \
-                             lengths, page_indices, out, B, H, KV, P, ps,   \
-                             MP, hd, lpt, stream)
-  if (G == 1) EMMAX_PAGED_LAUNCH(1);
-  if (G == 2) EMMAX_PAGED_LAUNCH(2);
-  if (G <= 4) EMMAX_PAGED_LAUNCH(4);
-  EMMAX_PAGED_LAUNCH(8);  // G > 8 runs ceil(G / 8) head chunks
-#undef EMMAX_PAGED_LAUNCH
+// query heads per block: up to 8, and up to 4 for 16 dims a lane
+template <typename TQ, typename TKV, int EL>
+cudaError_t dispatch_g(const Args& a, int KV, cudaStream_t stream) {
+  constexpr int kMaxGC = EL > 8 ? 4 : 8;
+  if (a.G == 1) return launch<TQ, TKV, 1, EL>(a, KV, stream);
+  if (a.G == 2) return launch<TQ, TKV, 2, EL>(a, KV, stream);
+  if (a.G <= 4 || kMaxGC == 4) return launch<TQ, TKV, 4, EL>(a, KV, stream);
+  return launch<TQ, TKV, kMaxGC, EL>(a, KV, stream);
 }
 
 template <typename TQ>
-cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k_pages,
-                        const void* v_pages, const float* k_scale,
-                        const float* v_scale, const int* lengths,
-                        const int* page_indices, void* out, int B, int H,
-                        int KV, int P, int ps, int MP, int hd, int lpt,
-                        cudaStream_t stream) {
-  if (kv_dtype == emmax::kFloat32)
-    return dispatch_g<TQ, float>(q, k_pages, v_pages, nullptr, nullptr,
-                                 lengths, page_indices, out, B, H, KV, P, ps,
-                                 MP, hd, lpt, stream);
-  if (kv_dtype == emmax::kBFloat16)
-    return dispatch_g<TQ, __nv_bfloat16>(q, k_pages, v_pages, nullptr,
-                                         nullptr, lengths, page_indices, out,
-                                         B, H, KV, P, ps, MP, hd, lpt,
-                                         stream);
-  if (kv_dtype == emmax::kInt8 && k_scale != nullptr && v_scale != nullptr)
-    return dispatch_g<TQ, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
-                                  lengths, page_indices, out, B, H, KV, P, ps,
-                                  MP, hd, lpt, stream);
+cudaError_t dispatch_kv(int kv_dtype, Args& a, int KV, cudaStream_t s) {
+  if (kv_dtype == emmax::kFloat32 && !a.k_scale)
+    return dispatch_g<TQ, float, 4>(a, KV, s);
+  if (kv_dtype == emmax::kBFloat16 && !a.k_scale)
+    return dispatch_g<TQ, __nv_bfloat16, 8>(a, KV, s);
+  if (kv_dtype == emmax::kInt8 && a.k_scale && a.v_scale)
+    return a.hd % 16 == 0 ? dispatch_g<TQ, int8_t, 16>(a, KV, s)
+                          : dispatch_g<TQ, int8_t, 8>(a, KV, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// pps: pages per range, so n_split = ceil(MP / pps) ranges. ws: the
+// caller's fp32 workspace of n_split * B * H * (hd + 2) floats (the
+// partials' m, l and acc planes). Returns the cudaError_t of the two
+// launches (0 = success).
 extern "C" int emmax_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* k_scale,
                                      const void* v_scale,
                                      const void* lengths,
                                      const void* page_indices, void* out,
-                                     int B, int H, int KV, int P, int ps,
-                                     int MP, int hd, int q_dtype,
-                                     int kv_dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || hd % kDims != 0 ||
-      hd > kMaxHeadDim || ps <= 0 || MP <= 0 || P <= 0)
+                                     void* ws, int B, int H, int KV, int P,
+                                     int ps, int MP, int hd, int pps,
+                                     int q_dtype, int kv_dtype,
+                                     void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || hd % 8 != 0 ||
+      hd > kMaxHeadDim || ps <= 0 || MP <= 0 || P <= 0 || pps <= 0 ||
+      ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  int lpt = 1;
-  while (lpt * kDims < hd) lpt <<= 1;
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* len = static_cast<const int*>(lengths);
-  const int* table = static_cast<const int*>(page_indices);
+  Args a;
+  a.q = q;
+  a.k_pages = k_pages;
+  a.v_pages = v_pages;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.lengths = static_cast<const int*>(lengths);
+  a.page_indices = static_cast<const int*>(page_indices);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.B = B;
+  a.H = H;
+  a.G = H / KV;
+  a.P = P;
+  a.ps = ps;
+  a.MP = MP;
+  a.hd = hd;
+  a.pps = pps;
+  a.n_split = (MP + pps - 1) / pps;
+  const int bytes = kv_dtype == emmax::kFloat32 ? 4
+                    : kv_dtype == emmax::kBFloat16 ? 2 : 1;
+  const int el = kv_dtype == emmax::kInt8 && hd % 16 ? 8 : 16 / bytes;
+  a.lpt = 1;
+  while (a.lpt * el < hd) a.lpt <<= 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == emmax::kBFloat16)
-    err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pages, v_pages, ks, vs,
-                                     len, table, out, B, H, KV, P, ps, MP, hd,
-                                     lpt, s);
+    err = dispatch_kv<__nv_bfloat16>(kv_dtype, a, KV, s);
   else if (q_dtype == emmax::kFloat32)
-    err = dispatch_kv<float>(kv_dtype, q, k_pages, v_pages, ks, vs, len,
-                             table, out, B, H, KV, P, ps, MP, hd, lpt, s);
+    err = dispatch_kv<float>(kv_dtype, a, KV, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

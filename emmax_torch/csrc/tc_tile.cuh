@@ -49,16 +49,16 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// 16-byte row loads (load_tile's `vec`) need D % 8 == 0 and every row to
+// 16-byte row loads (load_tile's `vec`) need D % E == 0 and every row to
 // start on a 16-byte boundary: the (batch, row, head) strides of the
-// tensors, st[0 .. 3N), multiples of 8 elements and their N bases 16-byte
-// aligned
-template <int N>
+// tensors, st[0 .. 3N), multiples of E elements and their N bases 16-byte
+// aligned. E is the elements in 16 bytes: 8 for bf16, 4 for fp32.
+template <int E = 8, int N>
 inline bool rows_16b(int D, const long long* st,
                      const void* const (&bases)[N]) {
-  if (D % 8) return false;
+  if (D % E) return false;
   for (int i = 0; i < 3 * N; ++i)
-    if (st[i] % 8) return false;
+    if (st[i] % E) return false;
   for (const void* p : bases)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;

@@ -55,9 +55,11 @@ def torch_dtype_code(dtype: torch.dtype) -> int:
 class CudaKernel:
     """One ``csrc/<source>`` kernel: build, load, launch bookkeeping.
 
-    ``launches`` counts the wrapper's kernel launches; a run resets it to 0
-    and reads it afterwards to show that a path went through the kernel.
-    ``name`` defaults to the source's stem.
+    ``launches`` counts the wrapper's kernel launches, and ``launches_by``
+    the launches of each variant a wrapper names (a dtype, say); a run
+    resets both with ``reset_counts`` and reads them afterwards to show
+    that a path went through the kernel. ``name`` defaults to the source's
+    stem.
     """
 
     def __init__(self, source: str, symbol: str,
@@ -68,6 +70,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.launches_by: Dict[str, int] = {}
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._fn = None
@@ -124,13 +127,21 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the entry point; raise on a non-zero cudaError_t."""
+    def reset_counts(self) -> None:
+        """Set ``launches`` and every count of ``launches_by`` to 0."""
+        self.launches = 0
+        self.launches_by = {}
+
+    def launch(self, *args, variant: Optional[str] = None) -> None:
+        """Call the entry point; raise on a non-zero cudaError_t.
+        ``variant`` also counts the launch under that name."""
         rc = self.fn()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError_t {rc}")
         self.launches += 1
+        if variant is not None:
+            self.launches_by[variant] = self.launches_by.get(variant, 0) + 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

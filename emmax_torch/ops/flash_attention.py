@@ -14,8 +14,10 @@ projection (the towers) is passed without a copy:
   them.
 
 bf16 inputs run on the tensor cores (``mma.sync`` through
-``csrc/mma.cuh``, tiles through ``csrc/tc_tile.cuh``), fp32 inputs on
-scalar fp32 kernels. The bf16 forward rounds each 64-key tile's
+``csrc/mma.cuh``, tiles through ``csrc/tc_tile.cuh``). The fp32 forward
+runs on them too, in 3xTF32 (each operand split into two TF32 parts,
+three products; fp32's accuracy); the fp32 backward on scalar fp32
+kernels. The bf16 forward rounds each 64-key tile's
 unnormalised P to bf16 before P V, as JAX's kernel does per tile (the
 plain version rounds the normalised probabilities); the bf16 backward
 rounds P to bf16 for dV = P^T dO, where the plain version and JAX keep
@@ -203,7 +205,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out.data_ptr(), lse.data_ptr() if return_lse else None,
                   B, H, Lq, S, D, ctypes.cast(strides, ctypes.c_void_p),
                   int(causal), int(q_offset), float(_scale(q, sm_scale)),
-                  torch_dtype_code(q.dtype), current_stream_ptr(q.device))
+                  torch_dtype_code(q.dtype), current_stream_ptr(q.device),
+                  variant=str(q.dtype).removeprefix("torch."))
     return (out, lse) if return_lse else out
 
 

@@ -18,7 +18,13 @@ function: one query token per row attends over that row's pages.
   in q's dtype, and a row of length 0 gives zeros.
 
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for CUDA tensors
-and runs the plain version for CPU tensors.
+and runs the plain version for CPU tensors. The kernel splits each row's
+page table into ``splits(MP, ps)`` ranges of pages (flash-decoding): each
+range's fp32 partial (max, sum, accumulator) goes to a workspace taken
+here beside the output, and a second kernel merges them in range order, so
+one call launches two kernels (and counts one). The split count depends
+on the shapes only, never on the lengths, so a call can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -34,12 +40,26 @@ from emmax_torch.ops.cuda_build import (CudaKernel, current_stream_ptr,
 MAX_INT8 = 127.5            # quantization_utils.MAX_INT8 of the TPU kernel
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 128
+SPLIT_TOKENS = 128          # a split's pages hold at least this many tokens
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("paged_attention.cu", "emmax_paged_attention",
-                    [_P] * 8 + [_I] * 9 + [_P])
+                    [_P] * 9 + [_I] * 10 + [_P])
+
+
+def split_pages(page_size: int) -> int:
+    """Pages in one of the kernel's page ranges: ``max(1, 128 //
+    page_size)``."""
+    return max(1, SPLIT_TOKENS // page_size)
+
+
+def splits(max_pages: int, page_size: int) -> int:
+    """The kernel's number of page ranges per row over a table of
+    ``max_pages``; it depends on the shapes only. The kernel works it out
+    the same way; here it sizes the workspace."""
+    return -(-max_pages // split_pages(page_size))
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
@@ -74,6 +94,12 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def _require_cuda(name: str, tensors) -> None:
+    dev = tensors[0].device
+    if not (dev.type == "cuda" and all(t.device == dev for t in tensors)):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+
+
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, lengths: torch.Tensor,
                          page_indices: torch.Tensor, *,
@@ -91,9 +117,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         tensors += [k_scale, v_scale]
     elif k_scale is not None or v_scale is not None:
         raise ValueError(f"{name}: scales are for int8 pages only")
+    _require_cuda(name, tensors)
     dev = q.device
-    if not (dev.type == "cuda" and all(t.device == dev for t in tensors)):
-        raise ValueError(f"{name}: every tensor must be on one CUDA device")
     B, H, hd = q.shape
     kv, P, ps, hd_k = k_pages.shape
     if (v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype
@@ -124,12 +149,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{name}: pages and scales must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors[:3]):
         raise ValueError(f"{name}: q and the pages must be 16-byte aligned")
+    MP = page_indices.shape[1]
     out = torch.empty_like(q)
+    ws = torch.empty(splits(MP, ps) * B * H * (hd + 2), dtype=torch.float32,
+                     device=dev)
     KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   k_scale.data_ptr() if quantized else None,
                   v_scale.data_ptr() if quantized else None,
                   tensors[3].data_ptr(), tensors[4].data_ptr(),
-                  out.data_ptr(), B, H, kv, P, ps, page_indices.shape[1], hd,
+                  out.data_ptr(), ws.data_ptr(),
+                  B, H, kv, P, ps, MP, hd, split_pages(ps),
                   torch_dtype_code(q.dtype), _KV_CODES[k_pages.dtype],
                   current_stream_ptr(dev))
     return out

@@ -129,12 +129,12 @@ BWD_TC = [
 ]
 
 
-def _bwd_inputs(dev, case, seed=4):
+def _bwd_inputs(dev, case, seed=4, dtype=torch.bfloat16):
     B, Lq, S, H, D, causal, q_offset, lpad, rpad, layout = case
     g = torch.Generator(dev).manual_seed(seed)
 
     def rnd(*shape):
-        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
 
     if layout == "qkv":
         assert Lq == S
@@ -207,6 +207,44 @@ def test_flash_forward_tensor_cores_match_plain(dev, case):
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     assert out.dtype == torch.bfloat16
     _close(out, fa.flash_attention_reference(q, k, v, **kw), 2e-2)
+    want_lse = fa.flash_lse_reference(q, k, **kw)
+    live = want_lse > -1e30
+    assert torch.equal(lse[~live], want_lse[~live])     # the sentinel
+    assert not out[~live].any()                         # exact zeros
+    if live.any():
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-5 * max(
+            1.0, want_lse[live].abs().max().item())
+    again, lse2 = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, **kw), out)
+
+
+# the fp32 forward on the tensor cores in 3xTF32, same layouts: the
+# towers' shapes (D 64 over 261 keys, D 72), D 128 with a rectangular
+# causal offset and with rows not 16-byte aligned (4-byte copies), D 100
+# padded to 128, and a row that sees no key
+FWD_TF32 = [
+    (1, 261, 261, 4, 64, False, 0, 0, 0, "qkv"),
+    (2, 256, 256, 3, 72, False, 0, 0, 5, "qkv"),
+    (2, 97, 161, 2, 128, True, 64, 0, 7, "contig"),
+    (1, 75, 75, 2, 128, True, 0, 0, 0, "odd"),
+    (2, 70, 110, 2, 100, False, 0, 9, 0, "contig"),
+    (2, 33, 33, 2, 72, True, 0, 33, 0, "qkv"),
+]
+
+
+@pytest.mark.parametrize("case", FWD_TF32, ids=[str(c) for c in FWD_TF32])
+def test_flash_forward_3xtf32_matches_plain(dev, case):
+    """The fp32 forward (3xTF32 on the tensor cores) against the plain
+    version at 1e-4, its LSE at 1e-5; rows that see no key are exact zeros
+    with the LSE sentinel bit for bit; the same bits on a rerun, with and
+    without the LSE."""
+    from emmax_torch.ops import flash_attention as fa
+
+    q, k, v, _, kw = _bwd_inputs(dev, case, dtype=torch.float32)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert out.dtype == torch.float32
+    _close(out, fa.flash_attention_reference(q, k, v, **kw), 1e-4)
     want_lse = fa.flash_lse_reference(q, k, **kw)
     live = want_lse > -1e30
     assert torch.equal(lse[~live], want_lse[~live])     # the sentinel
@@ -457,3 +495,61 @@ def test_paged_attention_kernel_zero_length_row_and_checks(dev):
                                 lengths, table)
     with pytest.raises(TypeError, match="int32"):
         pa.paged_attention_cuda(q, k, v, lengths.long(), table)
+
+
+# (B, KV, G, hd, page size, pages per row, lengths): several page ranges
+# per row, with ranges wholly past a row's length, a row of length 0 and
+# G = 8 (int8 pages take two chunks of 4 query heads)
+PAGED_SPLIT = [
+    (4, 8, 1, 128, 16, 24, [1, 130, 0, 384]),
+    (3, 1, 8, 64, 32, 9, [33, 0, 288]),
+    (6, 4, 4, 128, 128, 6, [1, 127, 128, 129, 458, 768]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_SPLIT,
+                         ids=[str(c[:6]) for c in PAGED_SPLIT])
+@pytest.mark.parametrize("kdt", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_attention_split_ranges_rerun_and_graph_replay(dev, case, kdt):
+    """The kernel splits each row's pages into ``splits(MP, ps)`` ranges:
+    within 2e-2 of the plain version (bf16 q) with ranges wholly past a
+    row's length, zeros for a row of length 0, the same bits on a rerun,
+    and a CUDA graph of the call equal to the eager call, also when
+    replayed after the lengths change in place on the device."""
+    from emmax_torch.ops import paged_attention as pa
+    from emmax_torch.serving.paged import _row_quantize
+
+    B, KV, G, hd, ps, MP, lens = case
+    assert pa.splits(MP, ps) > 1
+    g = torch.Generator(dev).manual_seed(3)
+    P = B * MP + 2
+    q = (torch.randn(B, KV * G, hd, device=dev, generator=g)
+         * hd ** -0.5).bfloat16()
+    k, v = (torch.randn(KV, P, ps, hd, device=dev, generator=g)
+            for _ in range(2))
+    ks = vs = None
+    if kdt == torch.int8:
+        (k, ks), (v, vs) = _row_quantize(k), _row_quantize(v)
+    else:
+        k, v = k.to(kdt), v.to(kdt)
+    table = torch.randperm(P, device=dev, generator=g)[:B * MP].reshape(
+        B, MP).to(torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = pa.paged_attention_cuda(q, k, v, lengths, table, **kw)
+    _close(got, pa.paged_attention_reference(q, k, v, lengths, table, **kw),
+           2e-2)
+    assert all(not got[b].any() for b in range(B) if lens[b] == 0)
+    assert torch.equal(pa.paged_attention_cuda(q, k, v, lengths, table, **kw),
+                       got)
+    live = lengths.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = pa.paged_attention_cuda(q, k, v, live, table, **kw)
+    graph.replay()
+    assert torch.equal(replayed, got)
+    live.copy_(lengths.flip(0))
+    graph.replay()
+    assert torch.equal(replayed, pa.paged_attention_cuda(
+        q, k, v, lengths.flip(0).contiguous(), table, **kw))
