@@ -42,15 +42,15 @@ Phases, each raising on failure (the script then exits non-zero):
    each phase's device busy time, and each phase's bound;
 6. training kernels (in phase 3's call): the forward's LSE, dQ and dK/dV
    (separate and fused) against the plain backward at the Llama training
-   shape (B2, fused 448, H32, D128, causal, one row right-padded, bf16:
-   the tensor-core kernels) and the DINOv2 / SigLIP shapes
-   (bidirectional, fp32: the 3xTF32 forward, the scalar backward), with
-   device and eager ms,
-   bounds and ``scaled_dot_product_attention`` forward and backward
-   through autograd as the library time; the tensor-core kernels'
-   (forward bf16 and 3xTF32, backward, int4) and the paged kernels'
-   registers, spills and shared memory from the ``-Xptxas -v`` build log
-   and the sources' ``*_smem_bytes`` entries;
+   shape (B2, fused 448, H32, D128, causal, one row right-padded) and the
+   DINOv2 / SigLIP shapes (B2, bidirectional), each in bf16 (the bf16
+   tensor-core kernels) and in fp32 (the 3xTF32 kernels, the bound
+   counting three TF32 products with one at the fp32 peak beside it), with
+   device and eager ms, bounds and ``scaled_dot_product_attention``
+   forward and backward through autograd as the library time; the
+   tensor-core kernels' (forward and backward, bf16 and 3xTF32; int4) and
+   the paged kernels' registers, spills and shared memory from the
+   ``-Xptxas -v`` build log and the sources' ``*_smem_bytes`` entries;
 7. ``align7b``: the full 7B (full width and depth) in the align stage
    (towers and Llama frozen, projector trained; B2, text 192 -> fused
    448; full remat; bf16 compute on fp32 master params; constant LR): one
@@ -59,7 +59,7 @@ Phases, each raising on failure (the script then exits non-zero):
    (dQ = dK/dV = 32; the forward twice per layer plus the towers' 49),
    then a few steps on one batch: step ms, tokens/s, peak memory, and
    the step's share of the bf16 peak by ``scripts/bench_train_step.py``'s
-   accounting; then steps under ``attn_impl="cuda_fused"`` (the dK/dV
+   accounting (the launch gate counts by dtype: every launch bf16); then steps under ``attn_impl="cuda_fused"`` (the dK/dV
    kernel's dQ partials, no dQ kernel; launches checked) and "cuda" in
    turns, and one profiled fused step;
 8. the paged-attention kernel (in phase 3's call, so ``--kernels-only``
@@ -93,9 +93,19 @@ Phases, each raising on failure (the script then exits non-zero):
    through ``GCOTDataset`` -> ``collate_train`` -> the prefetching loader
    -> ``run_discrete_vla_training`` with AdamW over the LLM and the
    projector, a Solver eval, and a checkpoint saved to a temporary
-   directory, restored, and held equal to the live state.
+   directory, restored, and held equal to the live state;
+12. ``vla-full-train-fp32``: Emma-X's own stage (``stage_from_flags(False,
+   False, False)``: towers, projector and LLM trained) in fp32 compute, as
+   ``emmax_torch/train.py`` runs it without mixed precision; the same cut
+   and batch as phase 11 through ``GCOTDataset`` -> ``collate_train``, full
+   remat: one step's loss and tower / projector / decoder-layer gradients
+   through the kernels against the plain path from the same params and
+   batch (tolerances stated at ``FULL_LOSS_RTOL``), the fp32 kernels'
+   launches in one step by dtype (forward 2 per decoder layer + 49 tower
+   blocks, dQ and dK/dV 1 each), then optimizer steps: finite losses,
+   step ms, peak memory, and one profiled step.
 
-Phases 7 and 11 run after phase 10. The line before the last is the
+Phases 7, 11 and 12 run after phase 10; ``--kernels-only`` skips them. The line before the last is the
 card's name and power limit; the one before it a JSON object with one
 entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -140,6 +150,13 @@ ALIGN_STEPS = 3                # timed steps after one warm-up step
 LOSS_RTOL, GRAD_RTOL = 1e-2, 2e-2
 VLA_LAYERS = 8                 # vla-train: decoder cut to 8 of 32 layers
 VLA_B, VLA_STEPS = 4, 3
+# vla-full-train-fp32 (the same cut and batch): optimizer steps, the first
+# counted; kernels vs plain in fp32 from one state: the loss, relative
+# (one fp32 forward, sums in another order), and each group's gradient
+# relative to its largest entry (the backward through 8 decoder layers and
+# 23 / 26 tower blocks compounds the ~1e-6 of each attention call)
+FULL_STEPS = 3
+FULL_LOSS_RTOL, FULL_GRAD_RTOL = 1e-5, 1e-3
 # batched serving (bench.py:606-677): six requests of 64 new tokens
 PAGED_REQUESTS, PAGED_NEW = 6, 64
 PAGED_KW = dict(num_slots=6, n_pages=34, page_size=128,
@@ -247,7 +264,7 @@ def _kernel_name(mangled: str) -> str:
                   r"I(.*?)EEv", mangled)
     if m:
         return f"paged::{m.group(1)}<{', '.join(_template_args(m.group(2)))}>"
-    m = re.search(r"(tc|tf32|scalar)\d+(dq_kernel|dkv_kernel|fwd_kernel)"
+    m = re.search(r"(tc|tf32)\d+(dq_kernel|dkv_kernel|fwd_kernel)"
                   r"ILi(\d+)E(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
@@ -586,7 +603,6 @@ def check_flash_bwd(dev, gen, name, B, L, H, D, causal, rpad, dtype):
     act = B * L * H * D * el                       # one [B, L, H, D] array
     rows = B * L * H * 4                           # one fp32 [B, L, H]
     mask_b = B * L if kv_mask is not None else 0
-    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     n_kv_tiles = -(-L // fa.BWD_KV_TILE)
     work = {   # (bytes: each input read once, each output written once; ops)
         "flash_fwd_lse": (4 * act + rows + mask_b, 4.0 * D * pairs),
@@ -612,17 +628,21 @@ def check_flash_bwd(dev, gen, name, B, L, H, D, causal, rpad, dtype):
     recs = []
     for kname, (ms, eager) in times.items():
         n_bytes, ops = work[kname]
-        if kname == "flash_fwd_lse" and dtype == torch.float32:
-            # the 3xTF32 forward: three TF32 products for each one
+        if dtype == torch.float32:
+            # 3xTF32: three TF32 products for each one; one product at the
+            # fp32 FMA peak beside it
             bms, by = bound_ms(n_bytes, 3 * ops, TF32_FLOPS_PER_S)
         else:
-            bms, by = bound_ms(n_bytes, ops, peak)
+            bms, by = bound_ms(n_bytes, ops, BF16_FLOPS_PER_S)
         recs.append({"name": kname, "shape": name, "dtype": str(dtype)[6:],
                      "max_abs_err": errs_out[kname][0],
                      "rel_err": errs_out[kname][1], "ms": ms,
                      "eager_ms": eager, "plain_ms": plain[kname],
                      "library_ms": library[kname], "bound_ms": bms,
                      "bound_by": by})
+        if dtype == torch.float32:
+            recs[-1]["bound_fp32_fma_ms"] = bound_ms(n_bytes, ops,
+                                                     FP32_FLOPS_PER_S)[0]
     recs[0]["lse_max_abs_err"] = lse_err
     recs[-1]["dq_partial_sum_ms"] = dq_sum_ms
     recs[-1]["library_note"] = recs[1]["library_note"] = recs[2][
@@ -631,6 +651,12 @@ def check_flash_bwd(dev, gen, name, B, L, H, D, causal, rpad, dtype):
 
 
 def training_kernel_phase(dev):
+    """The training kernels at the shapes a train step gives them: the
+    Llama's (B2, fused 448, causal, the last row right-padded) in bf16
+    (mixed-precision training) and in fp32 (fp32 compute), and the
+    towers' (B2, bidirectional) in fp32 (fp32 compute, the
+    vla-full-train phase) and in bf16 (mixed-precision vla-full-train), and
+    in fp32 at the vla-full-train phase's batch."""
     from emmax_torch.models.vlm import emma_x_vlm_config
 
     cfg = emma_x_vlm_config()
@@ -639,21 +665,24 @@ def training_kernel_phase(dev):
     (_, dino), (_, sig) = cfg.vision
     llm = cfg.llm
     F = cfg.num_patches + ALIGN_TEXT
-    recs = (check_flash_bwd(dev, gen, f"llama train B{ALIGN_B} L{F} "
-                            f"H{llm.n_heads} D{llm.head_dim} causal "
-                            f"rpad{ALIGN_PAD}", ALIGN_B, F, llm.n_heads,
-                            llm.head_dim, True, ALIGN_PAD, torch.bfloat16)
-            + check_flash_bwd(dev, gen, f"dino B{ALIGN_B} L"
-                              f"{dino.num_patches + dino.num_prefix} "
-                              f"H{dino.n_heads} D{dino.head_dim}", ALIGN_B,
-                              dino.num_patches + dino.num_prefix,
-                              dino.n_heads, dino.head_dim, False, 0,
-                              torch.float32)
-            + check_flash_bwd(dev, gen, f"siglip B{ALIGN_B} "
-                              f"L{sig.num_patches} H{sig.n_heads} "
-                              f"D{sig.head_dim}", ALIGN_B, sig.num_patches,
-                              sig.n_heads, sig.head_dim, False, 0,
-                              torch.float32))
+    Ld = dino.num_patches + dino.num_prefix
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        recs += check_flash_bwd(dev, gen, f"llama train B{ALIGN_B} L{F} "
+                                f"H{llm.n_heads} D{llm.head_dim} causal "
+                                f"rpad{ALIGN_PAD}", ALIGN_B, F, llm.n_heads,
+                                llm.head_dim, True, ALIGN_PAD, dtype)
+    # B2 in both dtypes, then fp32 at VLA_B, the vla-full-train phase's
+    # batch
+    for B, dtype in ((ALIGN_B, torch.float32), (ALIGN_B, torch.bfloat16),
+                     (VLA_B, torch.float32)):
+        recs += check_flash_bwd(dev, gen, f"dino B{B} L{Ld} "
+                                f"H{dino.n_heads} D{dino.head_dim}", B, Ld,
+                                dino.n_heads, dino.head_dim, False, 0, dtype)
+        recs += check_flash_bwd(dev, gen, f"siglip B{B} "
+                                f"L{sig.num_patches} H{sig.n_heads} "
+                                f"D{sig.head_dim}", B, sig.num_patches,
+                                sig.n_heads, sig.head_dim, False, 0, dtype)
     for r in recs:
         log("kernel " + json.dumps(r))
     return recs
@@ -1342,9 +1371,11 @@ def align7b_phase(dev, kernels):
     tower_blocks = sum(v.depth - 1 for _, v in cfg.vision)
     expected = {"flash_fwd": 2 * L + tower_blocks, "flash_bwd_dq": L,
                 "flash_bwd_dkv": L, "int4_matmul": 0}
-    if launches != expected:
-        raise AssertionError(f"align7b launches per step {launches} != "
-                             f"{expected}")
+    by_dtype = {k.name: dict(k.launches_by) for k in kernels}
+    if launches != expected or by_dtype != {
+            k: ({"bfloat16": n} if n else {}) for k, n in expected.items()}:
+        raise AssertionError(f"align7b launches per step {launches} (by "
+                             f"dtype {by_dtype}) != {expected}, all bf16")
     times, losses = [], []
     for _ in range(ALIGN_STEPS):
         t0 = time.perf_counter()
@@ -1542,6 +1573,162 @@ def vla_train_phase(dev, kernels):
     return out
 
 
+def _grad_groups(grads, layer: int) -> dict:
+    """The gradients the vla-full-train parity compares, as fp32 lists:
+    each tower's, the projector's, and decoder layer ``layer``'s."""
+    from emmax_torch.models.tree import leaves_with_path
+
+    groups = {"dino": [], "siglip": [], "projector": [],
+              f"llm_layer{layer}": []}
+    for path, g in leaves_with_path(grads):
+        if path.startswith("vision/dino/"):
+            groups["dino"].append(g.float())
+        elif path.startswith("vision/siglip/"):
+            groups["siglip"].append(g.float())
+        elif path.startswith("projector/"):
+            groups["projector"].append(g.float())
+        elif path.startswith("llm/layers/"):
+            groups[f"llm_layer{layer}"].append(g[layer].float())
+    return groups
+
+
+def vla_full_train_fp32_phase(dev, kernels):
+    """Emma-X's own stage, vla-full-train (towers, projector and LLM
+    trained; ``stop_vision_gradient=False``), in fp32 compute (the step
+    ``emmax_torch/train.py`` builds when mixed precision is off): full
+    width, the decoder cut to ``VLA_LAYERS``, ``VLA_B`` GCOT records
+    through ``GCOTDataset`` -> ``collate_train``, attention through the
+    kernels, full remat. One step's loss and gradients against the plain
+    path from the same params and batch; the fp32 kernels' launches per
+    step, counted by dtype; then optimizer steps: losses, step ms, peak
+    memory, and one profiled step."""
+    import dataclasses
+
+    from emmax_torch.data.collators import BatchLoader, collate_train
+    from emmax_torch.data.gcot import (GCOTDataset, SyntheticFrameSource,
+                                       make_dummy_gcot_items)
+    from emmax_torch.data.prefetch import to_device
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  stage_from_flags,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import (make_grad_fn,
+                                                  make_train_step)
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    base = emma_x_vlm_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, n_layers=VLA_LAYERS))
+    tokenizer = load_tokenizer(None)
+    dataset = GCOTDataset(make_dummy_gcot_items(4 * VLA_B),
+                          ActionTokenizer(tokenizer), tokenizer,
+                          SyntheticFrameSource(256),
+                          data_mix="movement_policy", mask_inst=True)
+    loader = BatchLoader(dataset, VLA_B, lambda s: collate_train(
+        s, tokenizer.pad_id, max_length=cfg.llm.max_seq_len), seed=7)
+    batches = [to_device(b, dev) for b in list(loader.epoch(0))[:FULL_STEPS]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(2)
+    params = init_vlm_params(gen, cfg, torch.float32, dev)
+    stage = stage_from_flags(False, False, False)
+    if stage != "vla-full-train":
+        raise AssertionError(f"stage_from_flags gave {stage}")
+    freeze = trainable_mask(params, stage)
+    common = dict(remat=True, stop_vision_gradient=False,
+                  compute_dtype=torch.float32,
+                  transforms=get_image_transforms("dinosiglip-vit-so-224px",
+                                                  "resize-naive"),
+                  freeze_mask=freeze, action_vocab_size=tokenizer.vocab_size)
+    n_train = sum(t.numel() for m, t in zip(_leaves(freeze), _leaves(params))
+                  if m)
+
+    # one step's loss and gradients from the same params and batch,
+    # through the kernels and through the plain path
+    results = {}
+    for impl in ("torch", "cuda"):
+        loss, _, grads = make_grad_fn(cfg, attn_impl=impl, **common)(
+            params, batches[0])
+        results[impl] = (loss.item(), _grad_groups(grads, VLA_LAYERS - 1))
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_loss, ref = results["torch"]
+    loss, got = results["cuda"]
+    parity = {"loss_rel": abs(loss - ref_loss) / abs(ref_loss)}
+    for name, gs in ref.items():
+        scale = max(g.abs().max().item() for g in gs)
+        parity[f"{name}_grad_err_over_max"] = max(
+            (a - b).abs().max().item() for a, b in zip(got[name], gs)) / scale
+        parity[f"{name}_grad_max"] = scale
+    del results, ref, got
+    bad = {k: v for k, v in parity.items() if k.endswith("over_max")
+           and not v <= FULL_GRAD_RTOL}
+    if not (np.isfinite(ref_loss) and parity["loss_rel"] <= FULL_LOSS_RTOL
+            and not bad):
+        raise AssertionError(f"vla-full-train-fp32 parity against the plain "
+                             f"step (loss rel tol {FULL_LOSS_RTOL}, grad "
+                             f"tol {FULL_GRAD_RTOL}): {parity}")
+    log(f"vla-full-train-fp32 parity against the plain step (loss "
+        f"{ref_loss:.6f}): {json.dumps(parity)}")
+
+    tx, _ = make_optimizer(params, learning_rate=2e-5, weight_decay=0.0,
+                           max_grad_norm=1.0, lr_scheduler_type="constant",
+                           total_steps=FULL_STEPS, stage=stage)
+    state = create_train_state(params, tx)
+    step = make_train_step(cfg, tx, attn_impl="cuda", **common)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.reset_counts()
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        vals = {k: v.item() for k, v in m.items()}   # ends in a sync
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(vals["loss"])
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"vla-full-train-fp32: non-finite metrics "
+                                 f"{vals}")
+        if i == 0:       # the first step's launches, by dtype
+            launches = {k.name: dict(k.launches_by) for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_ms = float(np.median(times[1:]))
+    profile = profile_step(lambda: step(state, batches[-1])[1]["loss"].item(),
+                           step_ms)
+    log("vla-full-train-fp32 profile " + json.dumps(profile))
+    tower_blocks = sum(v.depth - 1 for _, v in cfg.vision)
+    # towers once (not rematerialized), each decoder layer twice (its
+    # forward and full remat's rerun); one dQ and one dK/dV each
+    expected = {"flash_fwd": {"float32": 2 * VLA_LAYERS + tower_blocks},
+                "flash_bwd_dq": {"float32": VLA_LAYERS + tower_blocks},
+                "flash_bwd_dkv": {"float32": VLA_LAYERS + tower_blocks},
+                "int4_matmul": {}}
+    if launches != expected:
+        raise AssertionError(f"vla-full-train-fp32 launches per step by "
+                             f"dtype {launches} != {expected}")
+    out = {"phase": "vla-full-train-fp32", "stage": stage,
+           "decoder_layers": VLA_LAYERS, "params_b": _count(params) / 1e9,
+           "trainable_b": n_train / 1e9, "batch": VLA_B,
+           "fused_seq": int(batches[0]["input_ids"].shape[1]
+                            + cfg.num_patches - 1),
+           "parity": parity, "loss_fp32_plain": ref_loss,
+           "launches_per_step": launches, "losses": losses,
+           "step_ms": times, "step_ms_after_first": step_ms,
+           "peak_gb": peak_gb, "profile": profile}
+    log("vla-full-train-fp32 " + json.dumps(out))
+    del state, step, params, tx, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1568,11 +1755,16 @@ def main(argv) -> int:
     # the bf16 tensor-core kernels at D 128 (the training shape) and the
     # int4 kernels as built (<columns a lane, x tiles, stages, vector
     # copies>; 8 rows of x per warp for one x tile, else 32)
+    # (dkv, fused, D, dtype code): bf16 at the training shape, 3xTF32 at
+    # every padding
     bwd_res = kernel_resources(fa.DQ_KERNEL, "emmax_flash_bwd_smem_bytes", {
-        "tc::dq_kernel<128>": (0, 0, 128),
-        "tc::dkv_kernel<128, false>": (1, 0, 128),
-        "tc::dkv_kernel<128, true>": (1, 1, 128)})
-    log("flash_bwd bf16 D128 resources " + json.dumps(bwd_res))
+        "tc::dq_kernel<128>": (0, 0, 128, 1),
+        "tc::dkv_kernel<128, false>": (1, 0, 128, 1),
+        "tc::dkv_kernel<128, true>": (1, 1, 128, 1),
+        **{f"tf32::dq_kernel<{dp}>": (0, 0, dp, 0) for dp in (64, 72, 128)},
+        **{f"tf32::dkv_kernel<{dp}, {f}>": (1, int(f == "true"), dp, 0)
+           for dp in (64, 72, 128) for f in ("false", "true")}})
+    log("flash_bwd resources " + json.dumps(bwd_res))
     # (D, dtype code): bf16 at the training shape, 3xTF32 at every padding
     fwd_res = kernel_resources(fa.KERNEL, "emmax_flash_fwd_smem_bytes",
                                {"tc::fwd_kernel<128>": (128, 1),
@@ -1612,10 +1804,13 @@ def main(argv) -> int:
     align = align7b_phase(dev, kernels)
     log_phase("vla_train_phase")
     vla = vla_train_phase(dev, kernels)
-    log("training " + json.dumps({"align7b": align, "vla_train": vla}))
+    log_phase("vla_full_train_fp32_phase")
+    full = vla_full_train_fp32_phase(dev, kernels)
+    log("training " + json.dumps({"align7b": align, "vla_train": vla,
+                                  "vla_full_train_fp32": full}))
 
     def entry(rec, kernel, replaces, launches, **extra):
-        return {"name": kernel.name, "route": "cuda",
+        return {"name": extra.pop("name", kernel.name), "route": "cuda",
                 "source": f"emmax_torch/csrc/{kernel.source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1624,6 +1819,13 @@ def main(argv) -> int:
                 "shape": rec["shape"], **extra}
 
     by_name = {r["name"]: r for r in train_kernels[:4]}   # Llama training
+    # the fp32 backward: DINOv2 B2 first, then SigLIP B2, the towers at
+    # VLA_B and the Llama
+    by_name32 = {}
+    for r in (train_kernels[8:16] + train_kernels[24:32]
+              + train_kernels[4:8]):
+        by_name32.setdefault(r["name"], []).append(r)
+    full_step = full["launches_per_step"]
     step = align["launches_per_step"]
     prefill = flash[2]                        # the Llama prefill shape
     phases = bf16["profile"].get("phases", {})
@@ -1649,7 +1851,8 @@ def main(argv) -> int:
                        "library_ms": prefill["library_ms"],
                        "bound_ms": prefill["bound_ms"],
                        "launches_int4_path": q4["launches"]["flash_fwd"]},
-              towers_fp32=towers),
+              towers_fp32={**towers, "launches_vla_full_train_fp32_step":
+                           full_step["flash_fwd"]["float32"]}),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
               launches_path="align7b train step",
@@ -1662,6 +1865,24 @@ def main(argv) -> int:
                         ("ms", "eager_ms", "max_abs_err", "bound_ms",
                          "bound_by", "dq_partial_sum_ms")},
                      **bwd_res["tc::dkv_kernel<128, true>"]}),
+        *[entry(by_name32[kname][0], kernel,
+                f"emmax_tpu/ops/flash_attention.py:{line}",
+                full_step[kernel.name]["float32"], name=f"{kernel.name}_fp32",
+                dtype="float32", launches_path="vla-full-train-fp32 train "
+                "step (8 decoder layers + 49 tower blocks)",
+                bound_fp32_fma_ms=by_name32[kname][0]["bound_fp32_fma_ms"],
+                resources={n: r for n, r in bwd_res.items()
+                           if n.startswith(f"tf32::{kind}_kernel<")},
+                shapes=[{k: r[k] for k in ("shape", "ms", "eager_ms",
+                                           "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "bound_fp32_fma_ms",
+                                           "max_abs_err", "rel_err")}
+                        for r in by_name32[kname]
+                        + by_name32.get(f"{kname}_fused", [])])
+          for kname, kernel, line, kind in (
+              ("flash_bwd_dq", fa.DQ_KERNEL, 395, "dq"),
+              ("flash_bwd_dkv", fa.DKV_KERNEL, 445, "dkv"))],
         entry(int4[1], int4_matmul.KERNEL,
               "emmax_tpu/ops/int4_matmul.py:404",
               q4["launches"]["int4_matmul"],

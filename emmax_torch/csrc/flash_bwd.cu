@@ -51,14 +51,49 @@
 // 2^-9 per term. Every other product has bf16-exact operands and fp32
 // sums, as JAX's dot_general on the same values.
 //
-// fp32: scalar kernels (namespace `scalar`): every product a fp32
-// FMA from shared memory on the CUDA cores (TF32 would not hold the fp32
-// tolerance), one 256-thread block per 64-row tile, 2 x 8 micro-tiles per
-// thread, D padded to 64, 72 or 128, rows padded by one float.
+// fp32: tensor-core kernels (namespace `tf32`), the same two-kernel
+// FlashAttention-2 backward on mma.sync m16n8k8 with tf32 operands, in
+// 3xTF32 as the fp32 forward (csrc/flash_fwd.cu): every operand x is split
+// as big = rna(x), small = rna(x - big) (csrc/mma.cuh's split_tf32) and
+// each of the five products (S, dP, dQ, dV, dK) is taken as small*big +
+// big*small + big*big into fp32 accumulators, which keeps fp32's accuracy
+// (one TF32 product alone is ~5e-4 off). P and dS are computed in fp32 in
+// registers and split there. A C fragment of m16n8 gives a lane columns
+// 2t, 2t + 1 where a tf32 A fragment wants k t, t + 4, so P's / dS's C
+// fragments feed the next product as A fragments unmoved and the other
+// operand's k rows are read in that permuted order (k t <-> row 2t,
+// k t + 4 <-> row 2t + 1). fp32 rows sit in shared memory padded to DP + 4
+// floats (DP = 64, 72 or 128), so the 32-bit fragment reads (rows g,
+// columns t; or rows 2t, columns g) hit 32 banks; tiles are loaded with
+// 16-byte cp.async where rows allow it (D % 4 == 0, strides and bases
+// 16-byte aligned; 4-byte cp.async otherwise) and double-buffered. A tile
+// that several warps read for B fragments (each K/V stage of dQ, each
+// Q/dO tile of dK/dV) is split once when it lands, big in place and small
+// beside it; a tile that one warp reads as A fragments is split as it is
+// read. At the towers' shapes these kernels measured latency-bound (time
+// in waves of blocks, not in MMAs), so the layouts aim at warps per SM.
+// Blocks of 4 warps:
+// - `flash_bwd_dq`: one block per (32 query rows, head, batch), as the
+//   fp32 forward: warps 0 and 1 (16 rows each) take the first 16 keys of
+//   each 32-key stage, warps 2 and 3 the other 16, and the second half's
+//   dQ is added to the first's at the end; 3 blocks an SM at DP <= 72.
+// - `flash_bwd_dkv`: at DP <= 72 one block per (32 keys, head, batch),
+//   two warps to each 16 keys, which split each 32-row query tile's 8-row
+//   n-tiles and add their dK/dV at the end (3 blocks an SM); at DP 128,
+//   and when FUSED, one block per 64 keys, one warp to each 16. FUSED puts
+//   dS^T in fp32 shared memory and writes the dQ partial of each q tile,
+//   as the bf16 kernel does.
+// The masking, the exact zeros, the tile order and the fused partials'
+// layout are the bf16 kernels'. Bound: per valid (query, key) pair dQ does
+// 6*D and dK/dV 8*D fp32 operations, three TF32 products each on the
+// tensor cores (at the towers' shapes ~0.005 and ~0.007 ms at 495 TFLOP/s
+// against ~0.013 and ~0.017 ms for one product at the 67 TFLOP/s of fp32
+// FMAs).
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "tc_tile.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
 
@@ -90,181 +125,105 @@ __device__ __forceinline__ bool visible(const Args& a, const uint8_t* mb,
   return !a.causal || kj <= a.q_offset + qi;
 }
 
-// ------------------------------------------------------ scalar (fp32) ---
+// ---------------------------------------------------- 3xTF32 (fp32) ---
 
-namespace scalar {
+namespace tf32 {
 
-constexpr int BQ = 64;      // query rows per tile
-constexpr int BK = 64;      // keys per tile
-constexpr int NT = 256;     // threads per block: 32 row groups x 8 columns
-constexpr int RPT = 2;      // rows per thread (BQ == BK == RPT * NT / 8)
+using emmax::mma::cp_async_commit;
+using emmax::mma::cp_async_wait;
+using emmax::mma::mma_1688_tf32;
+using emmax::mma::split_tf32;
+using emmax::tc::key_ok;
+using emmax::tf32::bits;
+using emmax::tf32::load_a;
+using emmax::tf32::load_tile;
+using emmax::tf32::row_len;
+using emmax::tf32::split_tile;
 
-// rows [r0, r0 + 64) of a [rows, D] slice -> shared [64][DP + 1] fp32,
-// zero past `rows` and past D
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long row_stride, int r0,
-                                          int rows, int D) {
-  constexpr int QS = DP + 1;
-  for (int i = threadIdx.x; i < 64 * DP; i += NT) {
-    const int r = i / DP, d = i - (i / DP) * DP;
-    float val = 0.f;
-    if (r0 + r < rows && d < D) val = src[(r0 + r) * row_stride + d];
-    dst[r * QS + d] = val;
-  }
+constexpr int NW = 4;            // warps per block
+constexpr int NTH = 32 * NW;     // threads per block
+constexpr int DQ_BQ = 32;        // dQ: query rows per block, 16 per warp
+constexpr int DQ_KW = 16;        // dQ: keys per warp and stage
+constexpr int DQ_BK = 2 * DQ_KW; // dQ: keys per K/V stage
+constexpr int KV_BQ = 32;        // dK/dV: query rows per stage
+constexpr int BWD_KV_TILE = 64;  // keys per fused dQ partial
+constexpr int DS_LD = KV_BQ + 4; // FUSED dS^T rows in shared: the A-fragment
+                                 // reads (rows 2t, 2t + 1, columns g) hit
+                                 // 32 banks
+constexpr float LOG2E = 1.4426950408889634f;
+
+// dK/dV: keys per block. 32 at DP <= 72, two warps to each 16 keys, so
+// the towers' shapes put 3 blocks (12 warps) on an SM; 64 at DP 128 (a
+// 32-key block would split every Q/dO tile for half the keys) and when
+// FUSED (the dQ partials are per 64 keys)
+template <int DP, bool FUSED>
+__host__ __device__ constexpr int kv_bk() {
+  return FUSED || DP > 72 ? BWD_KV_TILE : 32;
 }
 
 template <int DP>
 constexpr int dq_smem_bytes() {
-  return (4 * 64 * (DP + 1) + BQ * (BK + 1)) * (int)sizeof(float);
-}
-
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  return (4 * 64 * (DP + 1) + 2 * BK * (BQ + 1)) * (int)sizeof(float);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NT) dq_kernel(Args a) {
-  constexpr int QS = DP + 1;
-  constexpr int PS = BK + 1;
-  constexpr int NC = DP / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][QS]
-  float* dOs = Qs + BQ * QS;    // [BQ][QS]
-  float* Ks = dOs + BQ * QS;    // [BK][QS]
-  float* Vs = Ks + BK * QS;     // [BK][QS]
-  float* dSs = Vs + BK * QS;    // [BQ][PS]
-  __shared__ float lse_s[BQ], di_s[BQ];
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;
-  const int cg = tid & 7;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long* st = a.st;
-
-  const float* qb = static_cast<const float*>(a.q) + b * st[0] + h * st[2];
-  const float* kb = static_cast<const float*>(a.k) + b * st[3] + h * st[5];
-  const float* vb = static_cast<const float*>(a.v) + b * st[6] + h * st[8];
-  const float* ob =
-      static_cast<const float*>(a.dout) + b * st[9] + h * st[11];
-  const uint8_t* mb = a.mask ? a.mask + b * st[21] : nullptr;
-
-  load_tile<DP>(Qs, qb, st[1], q0, a.Lq, a.D);
-  load_tile<DP>(dOs, ob, st[10], q0, a.Lq, a.D);
-  for (int r = tid; r < BQ; r += NT) {
-    const bool in = q0 + r < a.Lq;
-    const long long at = ((long long)b * a.Lq + q0 + r) * a.H + h;
-    lse_s[r] = in ? a.lse[at] : 0.f;
-    di_s[r] = in ? a.di[at] : 0.f;
-  }
-
-  float acc[RPT][NC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  int kv_end = a.S;
-  if (a.causal) kv_end = min(a.S, a.q_offset + q0 + BQ);
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // previous tile's K/V/dS consumed; Q/dO/lse loaded
-    load_tile<DP>(Ks, kb, st[4], k0, a.S, a.D);
-    load_tile<DP>(Vs, vb, st[7], k0, a.S, a.D);
-    __syncthreads();
-
-    float s[RPT][8], dp[RPT][8];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qa[RPT], oa[RPT], ka[8], va[8];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qa[i] = Qs[(rg * RPT + i) * QS + d];
-        oa[i] = dOs[(rg * RPT + i) * QS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ka[j] = Ks[(cg + 8 * j) * QS + d];
-        va[j] = Vs[(cg + 8 * j) * QS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg * RPT + i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cg + 8 * j;
-        const float p = visible(a, mb, q0 + r, k0 + c)
-                            ? expf(s[i][j] * a.sm_scale - lse_s[r])
-                            : 0.f;
-        dSs[r * PS + c] = p * (dp[i][j] - di_s[r]) * a.sm_scale;
-      }
-    }
-    __syncthreads();  // dS tile complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float sa[RPT], ka[NC];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) sa[i] = dSs[(rg * RPT + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) ka[c] = Ks[kk * QS + cg + 8 * c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(sa[i], ka[c], acc[i][c]);
-    }
-  }
-
-  float* dqb = static_cast<float*>(a.dq) + b * st[12] + h * st[14];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + rg * RPT + i;
-    if (row >= a.Lq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = cg + 8 * c;
-      if (d < a.D) dqb[row * st[13] + d] = acc[i][c];
-    }
-  }
+  return (2 * DQ_BQ + 6 * DQ_BK) * row_len<DP>() * 4 + 2 * DQ_BK;
 }
 
 template <int DP, bool FUSED>
-__global__ void __launch_bounds__(NT) dkv_kernel(Args a) {
-  constexpr int QS = DP + 1;
-  constexpr int PQ = BQ + 1;
-  constexpr int NC = DP / 8;
-  extern __shared__ float smem[];
-  float* Ks = smem;             // [BK][QS]
-  float* Vs = Ks + BK * QS;     // [BK][QS]
-  float* Qs = Vs + BK * QS;     // [BQ][QS]
-  float* dOs = Qs + BQ * QS;    // [BQ][QS]
-  float* Ps = dOs + BQ * QS;    // [BK][PQ], key-major
-  float* dSs = Ps + BK * PQ;    // [BK][PQ], key-major
-  __shared__ float lse_s[BQ], di_s[BQ];
+constexpr int dkv_smem_bytes() {
+  constexpr int KB = kv_bk<DP, FUSED>();
+  return (2 * KB + 6 * KV_BQ) * row_len<DP>() * 4 +
+         (FUSED ? KB * DS_LD * 4 : 0) + 4 * KV_BQ * 4 + KB;
+}
 
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;
-  const int cg = tid & 7;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// a C fragment {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)} as
+// the split A fragment {a0 (g, k t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4)}: k t <-> column 2t, k t + 4 <-> column 2t + 1, so the B
+// operand is read at rows 2t and 2t + 1 of each 8
+__device__ __forceinline__ void c_as_a(const float (&c)[4],
+                                       uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  split_tf32(c[0], big[0], small[0]);
+  split_tf32(c[2], big[1], small[1]);
+  split_tf32(c[1], big[2], small[2]);
+  split_tf32(c[3], big[3], small[3]);
+}
+
+// Every product below is d += a * b in 3xTF32: small*big, big*small,
+// big*big, in that order. They are issued in three rounds over all the
+// independent accumulators at hand (every small*big, then every big*small,
+// then every big*big): the MMAs are `asm volatile` and keep their order,
+// so three products in a row on one accumulator would each wait for the
+// one before.
+
+// One block per (32 query rows, head, batch); warps 0 and 1 (16 rows
+// each) take the first DQ_KW keys of every stage, warps 2 and 3 the other
+// DQ_KW; the two halves' dQ are summed at the end (pair 0's plus pair
+// 1's, through shared memory). Each K/V stage is split once when it
+// lands, into its (double-buffered) raw tile (big) and one small-part
+// tile; Q and dO, which each warp reads alone, are split as they are
+// read, which keeps shared memory to 3 blocks an SM.
+template <int DP>
+__global__ void __launch_bounds__(NTH, 1) dq_kernel(Args a) {
+  constexpr int ROW = row_len<DP>();
+  constexpr int KS = DP / 8;          // k-steps over D = dQ n-tiles
+  constexpr int NK = DQ_KW / 8;       // key n-tiles per warp and stage
+  constexpr int NDC = KS <= 9 ? KS : 8;   // dQ n-tiles per MMA round
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* Qb = reinterpret_cast<float*>(smem_f32);  // [DQ_BQ][ROW], raw
+  float* Ob = Qb + DQ_BQ * ROW;                    // [DQ_BQ][ROW], raw
+  float* Kb = Ob + DQ_BQ * ROW;        // [2][DQ_BK][ROW]: raw, then big
+  float* Vb = Kb + 2 * DQ_BK * ROW;    // [2][DQ_BK][ROW]
+  float* Ksm = Vb + 2 * DQ_BK * ROW;   // [DQ_BK][ROW]: the stage's smalls
+  float* Vsm = Ksm + DQ_BK * ROW;      // [DQ_BK][ROW]
+  uint8_t* ms = reinterpret_cast<uint8_t*>(Vsm + DQ_BK * ROW);  // [2][BK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 1;         // the warp's 16 query rows of the tile
+  const int kh = warp >> 1;        // the warp's DQ_KW keys of each stage
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_qt = (a.Lq + DQ_BQ - 1) / DQ_BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * DQ_BQ;  // last tile first
   const long long* st = a.st;
+  const bool vec = a.vec != 0;
 
   const float* qb = static_cast<const float*>(a.q) + b * st[0] + h * st[2];
   const float* kb = static_cast<const float*>(a.k) + b * st[3] + h * st[5];
@@ -273,157 +232,482 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Args a) {
       static_cast<const float*>(a.dout) + b * st[9] + h * st[11];
   const uint8_t* mb = a.mask ? a.mask + b * st[21] : nullptr;
 
-  load_tile<DP>(Ks, kb, st[4], k0, a.S, a.D);
-  load_tile<DP>(Vs, vb, st[7], k0, a.S, a.D);
+  // causal: keys past the tile's last query are never loaded
+  int kv_end = a.S;
+  if (a.causal) kv_end = min(a.S, a.q_offset + min(q0 + DQ_BQ, a.Lq));
+  const int n_kt = (kv_end + DQ_BK - 1) / DQ_BK;
 
-  float dk[RPT][NC], dv[RPT][NC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  load_tile<DQ_BQ, DP, NTH>(Qb, qb, st[1], q0, a.Lq, a.D, vec);
+  load_tile<DQ_BQ, DP, NTH>(Ob, ob, st[10], q0, a.Lq, a.D, vec);
+  if (n_kt > 0) {
+    load_tile<DQ_BK, DP, NTH>(Kb, kb, st[4], 0, a.S, a.D, vec);
+    load_tile<DQ_BK, DP, NTH>(Vb, vb, st[7], 0, a.S, a.D, vec);
+    if (tid < DQ_BK) ms[tid] = key_ok(a.S, mb, tid);
+  }
+  cp_async_commit();
 
-  // causal: query qi sees key k0 only from qi = k0 - q_offset on
-  const int n_qt = (a.Lq + BQ - 1) / BQ;
-  const int qt_start = a.causal ? min(n_qt, max(0, k0 - a.q_offset) / BQ) : 0;
-  // dQ partial of this kv tile, [B, Lq, H, D] slab of the fp32 buffer
-  float* part = FUSED ? a.dq_part + (long long)blockIdx.x * a.B * a.Lq *
-                                        a.H * a.D +
-                            ((long long)b * a.Lq * a.H + h) * a.D
-                      : nullptr;
-  if (FUSED) {
-    // skipped tiles still own their partial rows: zero them
-    for (int i = tid; i < qt_start * BQ * a.D; i += NT) {
-      const int r = i / a.D, d = i - (i / a.D) * a.D;
-      if (r < a.Lq) part[(long long)r * a.H * a.D + d] = 0.f;
+  // this lane's query rows qr[0] and qr[0] + 8 (of the warp's 16)
+  int qr[2];
+  float lse2[2], di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qr[i] = q0 + rw * 16 + g + 8 * i;
+    const bool in = qr[i] < a.Lq;
+    const long long at = ((long long)b * a.Lq + qr[i]) * a.H + h;
+    lse2[i] = in ? a.lse[at] * LOG2E : 0.f;
+    di[i] = in ? a.di[at] : 0.f;
+  }
+  const float scale2 = a.sm_scale * LOG2E;
+  const float* Qw = Qb + rw * 16 * ROW;
+  const float* Ow = Ob + rw * 16 * ROW;
+
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage `it` landed; every warp is done with it - 1
+    if (it + 1 < n_kt) {
+      const int nb = (buf ^ 1) * DQ_BK * ROW, k1 = (it + 1) * DQ_BK;
+      load_tile<DQ_BK, DP, NTH>(Kb + nb, kb, st[4], k1, a.S, a.D, vec);
+      load_tile<DQ_BK, DP, NTH>(Vb + nb, vb, st[7], k1, a.S, a.D, vec);
+      if (tid < DQ_BK) ms[(buf ^ 1) * DQ_BK + tid] = key_ok(a.S, mb, k1 + tid);
+    }
+    cp_async_commit();
+    split_tile<DQ_BK, DP, NTH>(Kb + buf * DQ_BK * ROW, Ksm);
+    split_tile<DQ_BK, DP, NTH>(Vb + buf * DQ_BK * ROW, Vsm);
+    __syncthreads();  // split
+    // this warp's keys k0 .. k0 + DQ_KW - 1 of the stage
+    const int k0 = it * DQ_BK + kh * DQ_KW;
+    const float* Kt = Kb + (buf * DQ_BK + kh * DQ_KW) * ROW;
+    const float* Kts = Ksm + kh * DQ_KW * ROW;
+    const float* Vt = Vb + (buf * DQ_BK + kh * DQ_KW) * ROW;
+    const float* Vts = Vsm + kh * DQ_KW * ROW;
+    const uint8_t* mt = ms + buf * DQ_BK + kh * DQ_KW;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x DQ_KW keys; K's
+    // and V's B fragments are their rows (keys) 8n + g, dims 8kk + t, + 4
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], qs[4], oa[4], os[4];
+      load_a<ROW>(qa, qs, Qw, 0, kk, g, t);
+      load_a<ROW>(oa, os, Ow, 0, kk, g, t);
+      uint32_t kb[NK][2], ks[NK][2], vb[NK][2], vs[NK][2];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int at = (8 * n + g) * ROW + 8 * kk + t + 4 * x;
+          kb[n][x] = bits(Kt[at]);
+          ks[n][x] = bits(Kts[at]);
+          vb[n][x] = bits(Vt[at]);
+          vs[n][x] = bits(Vts[at]);
+        }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mma_1688_tf32(s[n], qs, kb[n][0], kb[n][1]);
+        mma_1688_tf32(dp[n], os, vb[n][0], vb[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mma_1688_tf32(s[n], qa, ks[n][0], ks[n][1]);
+        mma_1688_tf32(dp[n], oa, vs[n][0], vs[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mma_1688_tf32(s[n], qa, kb[n][0], kb[n][1]);
+        mma_1688_tf32(dp[n], oa, vb[n][0], vb[n][1]);
+      }
+    }
+
+    // dS = P (dP - di) scale, P = exp2(s * scale2 - lse2), exactly 0
+    // where masked (in place of s)
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kc = 8 * n + 2 * t + (e & 1);
+        const bool vis = mt[kc] && qr[i] < a.Lq &&
+                         (!a.causal || k0 + kc <= a.q_offset + qr[i]);
+        const float p = vis ? exp2f(fmaf(s[n][e], scale2, -lse2[i])) : 0.f;
+        s[n][e] = p * (dp[n][e] - di[i]) * a.sm_scale;
+      }
+
+    // dQ += dS K per 8 keys: dS's C fragment is the A fragment with K's
+    // rows read in the permuted order (key rows 8n + 2t and 8n + 2t + 1,
+    // column 8j + g)
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      uint32_t ab[4], as[4];
+      c_as_a(s[n], ab, as);
+      const int at = (8 * n + 2 * t) * ROW + g;
+#pragma unroll
+      for (int j0 = 0; j0 < KS; j0 += NDC) {
+        uint32_t bb[NDC][2], bs[NDC][2];
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            if (j0 + j < KS) {
+              bb[j][x] = bits(Kt[at + x * ROW + 8 * (j0 + j)]);
+              bs[j][x] = bits(Kts[at + x * ROW + 8 * (j0 + j)]);
+            }
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (j0 + j < KS) mma_1688_tf32(acc[j0 + j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (j0 + j < KS) mma_1688_tf32(acc[j0 + j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (j0 + j < KS) mma_1688_tf32(acc[j0 + j], ab, bb[j][0], bb[j][1]);
+      }
     }
   }
 
+  // the second key half's dQ added to the first's, through the K buffers:
+  // entry j of lane (row warp rw) at j * 64 + rw * 32 + lane
+  static_assert(4 * KS * 64 <= 2 * DQ_BK * ROW, "the sum fits in K");
+  __syncthreads();                 // every warp is done with the tiles
+  float* xs = Kb + rw * 32 + lane;
+  if (kh > 0) {
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * n + e) * 64] = acc[n][e];
+  }
+  __syncthreads();
+  if (kh > 0) return;
+
+  float* dqb = static_cast<float*>(a.dq) + b * st[12] + h * st[14];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = qr[e >> 1], d = 8 * n + 2 * t + (e & 1);
+      const float v = acc[n][e] + xs[(4 * n + e) * 64];
+      if (row < a.Lq && d < a.D) dqb[row * st[13] + d] = v;
+    }
+}
+
+// One block per (KB keys, head, batch), walking the KV_BQ-row query
+// tiles that can see them (KB: kv_bk). The block's KB / 16 key groups of
+// 16 keys each have NW / (KB / 16) warps (2 at KB 32, 1 at KB 64), which
+// share the group's keys and split each query
+// tile's 8-row n-tiles between them; their dK/dV are summed at the end
+// (the first warp's plus the second's, through shared memory). Per warp:
+// S^T = K Q^T and dP^T = V dO^T with K and V split as their A fragments
+// are read, P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q
+// with P^T's and dS^T's C fragments as A fragments (dO's and Q's rows read
+// in the permuted order). Each Q/dO tile is split once when it lands.
+// FUSED also puts dS^T in shared memory and writes this kv tile's dQ
+// partial dS K into fp32 [n_kv_tiles, B, Lq, H, D], zeros for the q tiles
+// it skips.
+// (NTH, 3) at KB 32: at most 168 registers (16 bytes of spills at DP 72),
+// so 3 blocks fit an SM
+template <int DP, bool FUSED>
+__global__ void __launch_bounds__(NTH, kv_bk<DP, FUSED>() == 32 ? 3 : 1)
+    dkv_kernel(Args a) {
+  constexpr int ROW = row_len<DP>();
+  constexpr int KS = DP / 8;          // k-steps over D = dK / dV n-tiles
+  constexpr int KB = kv_bk<DP, FUSED>();  // keys per block
+  constexpr int KG = KB / 16;         // key groups of 16
+  constexpr int QS = NW / KG;         // warps per key group
+  constexpr int NQ = KV_BQ / 8 / QS;  // query n-tiles per warp and stage
+  constexpr int NDC = KS == 9 ? 3 : 4;    // dK / dV n-tiles per MMA round
+  static_assert(QS == 1 || QS == 2, "one or two warps per key group");
+  static_assert(!FUSED || KB == BWD_KV_TILE, "fused partials per 64 keys");
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* Ks = reinterpret_cast<float*>(smem_f32);  // [KB][ROW], raw
+  float* Vs = Ks + KB * ROW;                       // [KB][ROW], raw
+  float* Qb = Vs + KB * ROW;          // [2][KV_BQ][ROW]: raw, then big
+  float* Ob = Qb + 2 * KV_BQ * ROW;   // [2][KV_BQ][ROW]
+  float* Qsm = Ob + 2 * KV_BQ * ROW;  // [KV_BQ][ROW]: the tile's smalls
+  float* Osm = Qsm + KV_BQ * ROW;     // [KV_BQ][ROW]
+  float* dsT = Osm + KV_BQ * ROW;     // FUSED: [KB][DS_LD]
+  float* lse_s = dsT + (FUSED ? KB * DS_LD : 0);   // [2][KV_BQ]
+  float* di_s = lse_s + 2 * KV_BQ;                 // [2][KV_BQ]
+  uint8_t* km = reinterpret_cast<uint8_t*>(di_s + 2 * KV_BQ);  // [KB]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int k0 = kt * KB;      // kv tile 0, which sees every query, first
+  const int kr0 = (warp % KG) * 16;   // this warp's keys in the tile
+  const int qh = warp / KG;           // and its share of each query tile
+  const long long* st = a.st;
+  const bool vec = a.vec != 0;
+
+  const float* qb = static_cast<const float*>(a.q) + b * st[0] + h * st[2];
+  const float* kb = static_cast<const float*>(a.k) + b * st[3] + h * st[5];
+  const float* vb = static_cast<const float*>(a.v) + b * st[6] + h * st[8];
+  const float* ob =
+      static_cast<const float*>(a.dout) + b * st[9] + h * st[11];
+  const uint8_t* mb = a.mask ? a.mask + b * st[21] : nullptr;
+
+  // causal: query qi sees key k0 only from qi = k0 - q_offset on
+  const int n_qt = (a.Lq + KV_BQ - 1) / KV_BQ;
+  const int qt_start =
+      a.causal ? min(n_qt, max(0, k0 - a.q_offset) / KV_BQ) : 0;
+  // dQ partial of this kv tile, [B, Lq, H, D] slab of the fp32 buffer
+  float* part = nullptr;
+  if (FUSED) {
+    part = a.dq_part + (long long)kt * a.B * a.Lq * a.H * a.D +
+           ((long long)b * a.Lq * a.H + h) * a.D;
+    // skipped q tiles still own their partial rows: zero them
+    const int rows = min(qt_start * KV_BQ, a.Lq);
+    for (int i = tid; i < rows * a.D; i += NTH) {
+      const int r = i / a.D, d = i - (i / a.D) * a.D;
+      part[(long long)r * a.H * a.D + d] = 0.f;
+    }
+  }
+
+  auto load_q_tile = [&](int qt, int buf) {
+    const int q1 = qt * KV_BQ;
+    load_tile<KV_BQ, DP, NTH>(Qb + buf * KV_BQ * ROW, qb, st[1], q1, a.Lq,
+                              a.D, vec);
+    load_tile<KV_BQ, DP, NTH>(Ob + buf * KV_BQ * ROW, ob, st[10], q1, a.Lq,
+                              a.D, vec);
+    if (tid < KV_BQ) {
+      const bool in = q1 + tid < a.Lq;
+      const long long at = ((long long)b * a.Lq + q1 + tid) * a.H + h;
+      lse_s[buf * KV_BQ + tid] = in ? a.lse[at] * LOG2E : 0.f;
+      di_s[buf * KV_BQ + tid] = in ? a.di[at] : 0.f;
+    }
+  };
+
+  load_tile<KB, DP, NTH>(Ks, kb, st[4], k0, a.S, a.D, vec);
+  load_tile<KB, DP, NTH>(Vs, vb, st[7], k0, a.S, a.D, vec);
+  if (tid < KB) km[tid] = key_ok(a.S, mb, k0 + tid);
+  if (qt_start < n_qt) load_q_tile(qt_start, 0);
+  cp_async_commit();
+  const float scale2 = a.sm_scale * LOG2E;
+
+  float dk[KS][4], dv[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
   for (int qt = qt_start; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // previous q tile consumed; K/V loaded
-    load_tile<DP>(Qs, qb, st[1], q0, a.Lq, a.D);
-    load_tile<DP>(dOs, ob, st[10], q0, a.Lq, a.D);
-    for (int r = tid; r < BQ; r += NT) {
-      const bool in = q0 + r < a.Lq;
-      const long long at = ((long long)b * a.Lq + q0 + r) * a.H + h;
-      lse_s[r] = in ? a.lse[at] : 0.f;
-      di_s[r] = in ? a.di[at] : 0.f;
+    const int buf = (qt - qt_start) & 1, q0 = qt * KV_BQ;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `qt` landed; every warp is done with qt - 1
+    if (qt + 1 < n_qt) load_q_tile(qt + 1, buf ^ 1);
+    cp_async_commit();
+    const float* Qt = Qb + buf * KV_BQ * ROW;
+    const float* Ot = Ob + buf * KV_BQ * ROW;
+    split_tile<KV_BQ, DP, NTH>(Qb + buf * KV_BQ * ROW, Qsm);
+    split_tile<KV_BQ, DP, NTH>(Ob + buf * KV_BQ * ROW, Osm);
+    __syncthreads();  // split
+    const float* lt = lse_s + buf * KV_BQ;
+    const float* dt = di_s + buf * KV_BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x its NQ query
+    // n-tiles (8 (qh + QS i) .. + 7); Q's and dO's B fragments are their
+    // rows (queries) 8n + g, dims 8kk + t and + 4
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], ks[4], va[4], vs[4];
+      load_a<ROW>(ka, ks, Ks, kr0, kk, g, t);
+      load_a<ROW>(va, vs, Vs, kr0, kk, g, t);
+      uint32_t qb_[NQ][2], qs[NQ][2], ob_[NQ][2], os[NQ][2];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int at = (8 * (qh + QS * i) + g) * ROW + 8 * kk + t + 4 * x;
+          qb_[i][x] = bits(Qt[at]);
+          qs[i][x] = bits(Qsm[at]);
+          ob_[i][x] = bits(Ot[at]);
+          os[i][x] = bits(Osm[at]);
+        }
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        mma_1688_tf32(s[i], ks, qb_[i][0], qb_[i][1]);
+        mma_1688_tf32(dp[i], vs, ob_[i][0], ob_[i][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        mma_1688_tf32(s[i], ka, qs[i][0], qs[i][1]);
+        mma_1688_tf32(dp[i], va, os[i][0], os[i][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        mma_1688_tf32(s[i], ka, qb_[i][0], qb_[i][1]);
+        mma_1688_tf32(dp[i], va, ob_[i][0], ob_[i][1]);
+      }
+    }
+
+    // P^T (in place of s) and dS^T (in place of dp), exactly 0 where
+    // masked
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = kr0 + g + 8 * (e >> 1);
+        const int qc = 8 * (qh + QS * i) + 2 * t + (e & 1);
+        const int qi = q0 + qc;
+        const bool vis = km[kr] && qi < a.Lq &&
+                         (!a.causal || k0 + kr <= a.q_offset + qi);
+        const float p = vis ? exp2f(fmaf(s[i][e], scale2, -lt[qc])) : 0.f;
+        s[i][e] = p;
+        dp[i][e] = p * (dp[i][e] - dt[qc]) * a.sm_scale;
+        if (FUSED) dsT[kr * DS_LD + qc] = dp[i][e];
+      }
+
+    // dV += P^T dO and dK += dS^T Q per 8 queries, dO's and Q's rows read
+    // in the permuted order (query rows 8n + 2t and 8n + 2t + 1, column
+    // 8j + g)
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      uint32_t pb[4], ps[4], db[4], ds[4];
+      c_as_a(s[i], pb, ps);
+      c_as_a(dp[i], db, ds);
+      const int at = (8 * (qh + QS * i) + 2 * t) * ROW + g;
+#pragma unroll
+      for (int j0 = 0; j0 < KS; j0 += NDC) {
+        uint32_t ob_[NDC][2], os[NDC][2], qb_[NDC][2], qs[NDC][2];
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            if (j0 + j < KS) {
+              const int y = at + x * ROW + 8 * (j0 + j);
+              ob_[j][x] = bits(Ot[y]);
+              os[j][x] = bits(Osm[y]);
+              qb_[j][x] = bits(Qt[y]);
+              qs[j][x] = bits(Qsm[y]);
+            }
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (j0 + j < KS) {
+            mma_1688_tf32(dv[j0 + j], ps, ob_[j][0], ob_[j][1]);
+            mma_1688_tf32(dk[j0 + j], ds, qb_[j][0], qb_[j][1]);
+          }
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (j0 + j < KS) {
+            mma_1688_tf32(dv[j0 + j], pb, os[j][0], os[j][1]);
+            mma_1688_tf32(dk[j0 + j], db, qs[j][0], qs[j][1]);
+          }
+#pragma unroll
+        for (int j = 0; j < NDC; ++j)
+          if (j0 + j < KS) {
+            mma_1688_tf32(dv[j0 + j], pb, ob_[j][0], ob_[j][1]);
+            mma_1688_tf32(dk[j0 + j], db, qb_[j][0], qb_[j][1]);
+          }
+      }
+    }
+
+    if constexpr (FUSED) {
+      // this q tile's dQ partial dS K over the block's 64 keys: the warp's
+      // 16-row tile rt of the KV_BQ rows, every (NW / RT)-th d n-tile; dS's
+      // A fragment from dS^T (key rows 8kk + 2t, + 1: the permuted order)
+      // and K's B fragment (rows 8kk + 2t, + 1, column 8j + g)
+      constexpr int RT = KV_BQ / 16;
+      constexpr int JS = NW / RT;               // warps per row tile
+      constexpr int NJ = (KS + JS - 1) / JS;    // n-tiles per warp
+      __syncthreads();  // dS^T complete
+      const int rt = warp % RT, j0 = warp / RT;
+      float pq[NJ][4];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pq[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KB / 8; ++kk) {
+        const float* d0 = dsT + (8 * kk + 2 * t) * DS_LD + 16 * rt + g;
+        const float c[4] = {d0[0], d0[DS_LD], d0[8], d0[DS_LD + 8]};
+        uint32_t ab[4], as[4];
+        c_as_a(c, ab, as);
+        const float* k1 = Ks + (8 * kk + 2 * t) * ROW + g;
+        uint32_t bb[NJ][2], bs[NJ][2];
+#pragma unroll
+        for (int i = 0; i < NJ; ++i)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            if (j0 + JS * i < KS)
+              split_tf32(k1[x * ROW + 8 * (j0 + JS * i)], bb[i][x], bs[i][x]);
+#pragma unroll
+        for (int i = 0; i < NJ; ++i)
+          if (j0 + JS * i < KS) mma_1688_tf32(pq[i], as, bb[i][0], bb[i][1]);
+#pragma unroll
+        for (int i = 0; i < NJ; ++i)
+          if (j0 + JS * i < KS) mma_1688_tf32(pq[i], ab, bs[i][0], bs[i][1]);
+#pragma unroll
+        for (int i = 0; i < NJ; ++i)
+          if (j0 + JS * i < KS) mma_1688_tf32(pq[i], ab, bb[i][0], bb[i][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int j = j0 + JS * i;
+        if (j >= KS) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + 16 * rt + g + 8 * (e >> 1);
+          const int d = 8 * j + 2 * t + (e & 1);
+          if (row < a.Lq && d < a.D)
+            part[(long long)row * a.H * a.D + d] = pq[i][e];
+        }
+      }
+    }
+  }
+
+  if constexpr (QS > 1) {
+    // the second warp of each key group adds its dK/dV to the first's,
+    // through the Q/dO buffers: entry j of lane (key group kg) at
+    // (j * KG + kg) * 32 + lane
+    static_assert(8 * KS * KG * 32 <= 4 * KV_BQ * ROW, "the sum fits in Q");
+    __syncthreads();               // every warp is done with the tiles
+    float* xs = Qb + (warp % KG) * 32 + lane;
+    if (qh > 0) {
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xs[(2 * (4 * n + e)) * KG * 32] = dk[n][e];
+          xs[(2 * (4 * n + e) + 1) * KG * 32] = dv[n][e];
+        }
     }
     __syncthreads();
-
-    // transposed scores: rows are keys 2*rg.., columns queries cg + 8*j
-    float s[RPT][8], dp[RPT][8];
+    if (qh > 0) return;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int n = 0; n < KS; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float ka[RPT], va[RPT], qa[8], oa[8];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        ka[i] = Ks[(rg * RPT + i) * QS + d];
-        va[i] = Vs[(rg * RPT + i) * QS + d];
+      for (int e = 0; e < 4; ++e) {
+        dk[n][e] += xs[(2 * (4 * n + e)) * KG * 32];
+        dv[n][e] += xs[(2 * (4 * n + e) + 1) * KG * 32];
       }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        qa[j] = Qs[(cg + 8 * j) * QS + d];
-        oa[j] = dOs[(cg + 8 * j) * QS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(ka[i], qa[j], s[i][j]);
-          dp[i][j] = fmaf(va[i], oa[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg * RPT + i;  // key row in the tile
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cg + 8 * j;  // query column in the tile
-        const float p = visible(a, mb, q0 + c, k0 + r)
-                            ? expf(s[i][j] * a.sm_scale - lse_s[c])
-                            : 0.f;
-        Ps[r * PQ + c] = p;
-        dSs[r * PQ + c] = p * (dp[i][j] - di_s[c]) * a.sm_scale;
-      }
-    }
-    __syncthreads();  // P and dS tiles complete
-
-    // dV += P^T dO and dK += dS^T Q: rows keys 2*rg.., columns cg + 8*c
-#pragma unroll 2
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pa[RPT], sa[RPT], oa[NC], qa[NC];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        pa[i] = Ps[(rg * RPT + i) * PQ + qq];
-        sa[i] = dSs[(rg * RPT + i) * PQ + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        oa[c] = dOs[qq * QS + cg + 8 * c];
-        qa[c] = Qs[qq * QS + cg + 8 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv[i][c] = fmaf(pa[i], oa[c], dv[i][c]);
-          dk[i][c] = fmaf(sa[i], qa[c], dk[i][c]);
-        }
-    }
-
-    if (FUSED) {
-      // this tile's dQ partial dS K: rows queries 2*rg.., columns cg + 8*c
-      float pq[RPT][NC];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) pq[i][c] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float sa[RPT], ka[NC];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) sa[i] = dSs[kk * PQ + rg * RPT + i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) ka[c] = Ks[kk * QS + cg + 8 * c];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) pq[i][c] = fmaf(sa[i], ka[c], pq[i][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + rg * RPT + i;
-        if (row >= a.Lq) continue;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = cg + 8 * c;
-          if (d < a.D) part[(long long)row * a.H * a.D + d] = pq[i][c];
-        }
-      }
-    }
   }
 
   float* dkb = static_cast<float*>(a.dk) + b * st[15] + h * st[17];
   float* dvb = static_cast<float*>(a.dv) + b * st[18] + h * st[20];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = k0 + rg * RPT + i;
-    if (row >= a.S) continue;
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = cg + 8 * c;
-      if (d < a.D) {
-        dkb[row * st[16] + d] = dk[i][c];
-        dvb[row * st[19] + d] = dv[i][c];
+    for (int e = 0; e < 4; ++e) {
+      const int row = k0 + kr0 + g + 8 * (e >> 1);
+      const int d = 8 * n + 2 * t + (e & 1);
+      if (row < a.S && d < a.D) {
+        dkb[row * st[16] + d] = dk[n][e];
+        dvb[row * st[19] + d] = dv[n][e];
       }
     }
-  }
 }
 
 template <int DP>
@@ -432,20 +716,21 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  dq_kernel<DP><<<grid, NT, smem, stream>>>(a);
+  dim3 grid(a.H, a.B, (a.Lq + DQ_BQ - 1) / DQ_BQ);
+  dq_kernel<DP><<<grid, NTH, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int DP, bool FUSED>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<DP>();
+  constexpr int smem = dkv_smem_bytes<DP, FUSED>();
   cudaError_t err = cudaFuncSetAttribute(
       dkv_kernel<DP, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.S + BK - 1) / BK, a.H, a.B);
-  dkv_kernel<DP, FUSED><<<grid, NT, smem, stream>>>(a);
+  constexpr int KB = kv_bk<DP, FUSED>();
+  dim3 grid(a.H, a.B, (a.S + KB - 1) / KB);
+  dkv_kernel<DP, FUSED><<<grid, NTH, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -455,6 +740,19 @@ cudaError_t launch(const Args& a, bool dkv, bool fused, cudaStream_t s) {
   return fused ? launch_dkv<DP, true>(a, s) : launch_dkv<DP, false>(a, s);
 }
 
+template <int DP>
+int smem_of(bool dkv, bool fused) {
+  if (!dkv) return dq_smem_bytes<DP>();
+  return fused ? dkv_smem_bytes<DP, true>() : dkv_smem_bytes<DP, false>();
+}
+
+int smem_bytes(bool dkv, bool fused, int D) {
+  if (D <= 64) return smem_of<64>(dkv, fused);
+  if (D <= 72) return smem_of<72>(dkv, fused);
+  if (D <= 128) return smem_of<128>(dkv, fused);
+  return -1;
+}
+
 cudaError_t dispatch(const Args& a, bool dkv, bool fused, cudaStream_t s) {
   if (a.D <= 64) return launch<64>(a, dkv, fused, s);
   if (a.D <= 72) return launch<72>(a, dkv, fused, s);
@@ -462,7 +760,7 @@ cudaError_t dispatch(const Args& a, bool dkv, bool fused, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-}  // namespace scalar
+}  // namespace tf32
 
 // --------------------------------------------------- tensor core (bf16) ---
 
@@ -945,14 +1243,16 @@ int entry(bool dkv, const void* q, const void* k, const void* v,
   a.causal = causal;
   a.q_offset = q_offset;
   a.sm_scale = sm_scale;
-  a.vec = emmax::tc::rows_16b(D, strides, {q, k, v, dout});
+  a.vec = dtype == emmax::kFloat32
+              ? emmax::tc::rows_16b<4>(D, strides, {q, k, v, dout})
+              : emmax::tc::rows_16b<8>(D, strides, {q, k, v, dout});
   if (dkv && fused && dq_part == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == emmax::kBFloat16)
     err = tc::dispatch(a, dkv, fused != 0, s);
   else if (dtype == emmax::kFloat32)
-    err = scalar::dispatch(a, dkv, fused != 0, s);
+    err = tf32::dispatch(a, dkv, fused != 0, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -994,9 +1294,11 @@ extern "C" int emmax_flash_bwd_dkv(const void* q, const void* k,
                fused, stream);
 }
 
-// Dynamic shared memory (bytes) of the bf16 kernel that
-// `emmax_flash_bwd_dq` (dkv == 0) or `emmax_flash_bwd_dkv` launches at
-// head dim D; -1 past 128.
-extern "C" int emmax_flash_bwd_smem_bytes(int dkv, int fused, int D) {
-  return tc::smem_bytes(dkv, fused, D);
+// Dynamic shared memory (bytes) of the kernel that `emmax_flash_bwd_dq`
+// (dkv == 0) or `emmax_flash_bwd_dkv` launches for `dtype` at head dim D;
+// -1 past 128.
+extern "C" int emmax_flash_bwd_smem_bytes(int dkv, int fused, int D,
+                                          int dtype) {
+  return dtype == emmax::kFloat32 ? tf32::smem_bytes(dkv, fused, D)
+                                  : tc::smem_bytes(dkv, fused, D);
 }

@@ -78,6 +78,7 @@
 #include "common.cuh"
 #include "mma.cuh"
 #include "tc_tile.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
 
@@ -105,13 +106,14 @@ struct Args {
 
 namespace tf32 {
 
-using emmax::mma::cp_async_16;
-using emmax::mma::cp_async_ca;
 using emmax::mma::cp_async_commit;
 using emmax::mma::cp_async_wait;
 using emmax::mma::mma_1688_tf32;
 using emmax::mma::split_tf32;
 using emmax::tc::key_ok;
+using emmax::tf32::load_a;
+using emmax::tf32::load_tile;
+using emmax::tf32::row_len;
 
 constexpr int KH = 2;            // warp pairs: key halves of a stage
 constexpr int NW = 2 * KH;       // warps per block
@@ -121,55 +123,9 @@ constexpr int KW = 32;           // keys per warp per stage
 constexpr int TBK = KW * KH;     // keys per K/V stage
 constexpr int NK = KW / 8;       // key n-tiles per warp and stage
 
-// shared row length (floats): DP + 4 = 4 (mod 8), so rows g (or 2t) of a
-// fragment read start 4 * odd banks apart; a multiple of 4 floats, so
-// 16-byte cp.async destinations stay aligned
-template <int DP>
-__host__ __device__ constexpr int row_len() {
-  return DP + 4;
-}
-
 template <int DP>
 constexpr int smem_bytes() {
   return (TBQ + 4 * TBK) * row_len<DP>() * 4 + 2 * TBK;
-}
-
-// rows [r0, r0 + R) of a [rows, D] fp32 slice -> shared [R][row_len],
-// zero past `rows` and in columns D..DP: 16-byte cp.async with `vec`, else
-// 4-byte cp.async, both zero-filling what is not read
-template <int R, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long row_stride, int r0,
-                                          int rows, int D, bool vec) {
-  constexpr int ROW = row_len<DP>();
-  if (vec) {
-    constexpr int CH = DP / 4;
-    for (int i = threadIdx.x; i < R * CH; i += NTH) {
-      const int r = i / CH, c = i - (i / CH) * CH;
-      const bool in = r0 + r < rows && c * 4 < D;
-      cp_async_16(dst + r * ROW + c * 4,
-                  in ? src + (r0 + r) * row_stride + c * 4 : src, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DP; i += NTH) {
-      const int r = i / DP, d = i - (i / DP) * DP;
-      const bool in = r0 + r < rows && d < D;
-      cp_async_ca<4>(dst + r * ROW + d,
-                     in ? src + (r0 + r) * row_stride + d : src, in);
-    }
-  }
-}
-
-// the split A fragment (big, small) of rows r0.. of a shared tile, k-step kk
-template <int ROW>
-__device__ __forceinline__ void load_a(uint32_t (&big)[4],
-                                       uint32_t (&small)[4],
-                                       const float* tile, int r0, int kk,
-                                       int g, int t) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    split_tf32(tile[(r0 + g + 8 * (e & 1)) * ROW + 8 * kk + t + 4 * (e >> 1)],
-               big[e], small[e]);
 }
 
 // (NTH, 1): without the block count ptxas held DP 64 to 168 registers
@@ -206,10 +162,10 @@ __global__ void __launch_bounds__(NTH, 1) fwd_kernel(Args<float> a) {
   if (a.causal) kv_end = min(a.S, a.q_offset + min(q0 + TBQ, a.Lq));
   const int n_kt = (kv_end + TBK - 1) / TBK;
 
-  load_tile<TBQ, DP>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
+  load_tile<TBQ, DP, NTH>(Qs, qb, st[1], q0, a.Lq, a.D, vec);
   if (n_kt > 0) {
-    load_tile<TBK, DP>(Ks, kb, st[4], 0, a.S, a.D, vec);
-    load_tile<TBK, DP>(Vs, vb, st[7], 0, a.S, a.D, vec);
+    load_tile<TBK, DP, NTH>(Ks, kb, st[4], 0, a.S, a.D, vec);
+    load_tile<TBK, DP, NTH>(Vs, vb, st[7], 0, a.S, a.D, vec);
     if (tid < TBK) ms[tid] = key_ok(a.S, mb, tid);
   }
   cp_async_commit();
@@ -245,8 +201,8 @@ __global__ void __launch_bounds__(NTH, 1) fwd_kernel(Args<float> a) {
     uint8_t m_next = 0;
     if (it + 1 < n_kt) {
       const int nb = (buf ^ 1) * TBK * ROW, k1 = (it + 1) * TBK;
-      load_tile<TBK, DP>(Ks + nb, kb, st[4], k1, a.S, a.D, vec);
-      load_tile<TBK, DP>(Vs + nb, vb, st[7], k1, a.S, a.D, vec);
+      load_tile<TBK, DP, NTH>(Ks + nb, kb, st[4], k1, a.S, a.D, vec);
+      load_tile<TBK, DP, NTH>(Vs + nb, vb, st[7], k1, a.S, a.D, vec);
       if (tid < TBK) m_next = key_ok(a.S, mb, k1 + tid);
     }
     cp_async_commit();

@@ -14,10 +14,11 @@ projection (the towers) is passed without a copy:
   them.
 
 bf16 inputs run on the tensor cores (``mma.sync`` through
-``csrc/mma.cuh``, tiles through ``csrc/tc_tile.cuh``). The fp32 forward
-runs on them too, in 3xTF32 (each operand split into two TF32 parts,
-three products; fp32's accuracy); the fp32 backward on scalar fp32
-kernels. The bf16 forward rounds each 64-key tile's
+``csrc/mma.cuh``, tiles through ``csrc/tc_tile.cuh``). fp32 inputs run on
+them too, forward and backward, in 3xTF32 (each operand split into two
+TF32 parts, three products; fp32's accuracy; tiles through
+``csrc/tf32_tile.cuh``). Every wrapper counts its launches per dtype as
+well (``launches_by``). The bf16 forward rounds each 64-key tile's
 unnormalised P to bf16 before P V, as JAX's kernel does per tile (the
 plain version rounds the normalised probabilities); the bf16 backward
 rounds P to bf16 for dV = P^T dO, where the plain version and JAX keep
@@ -269,9 +270,10 @@ def flash_attention_bwd_cuda(q, k, v, do, lse, di, *,
     (args, _keep), (dq, dk, dv, part) = bwd_launch_args(
         q, k, v, do, lse, di, kv_mask=kv_mask, causal=causal,
         q_offset=q_offset, sm_scale=sm_scale, fused=fused)
+    variant = str(q.dtype).removeprefix("torch.")
     if not fused:
-        DQ_KERNEL.launch(*args)
-    DKV_KERNEL.launch(*args)
+        DQ_KERNEL.launch(*args, variant=variant)
+    DKV_KERNEL.launch(*args, variant=variant)
     if fused:
         dq = part.sum(dim=0).to(q.dtype)
     return dq, dk, dv

@@ -9,12 +9,12 @@ This file imports no JAX, so it runs where only PyTorch is installed
 Tolerances, relative to the largest |reference| value: 1e-4 in fp32 (the
 same inputs, sums in another order), 2e-2 in bf16 (the kernels keep fp32
 where the plain versions round to bf16). The LSE is held at 1e-5
-absolute (fp32 in both). The bf16 flash forward and backward run on the
-tensor cores. The forward rounds P to bf16 before P V, as JAX does; the
-backward takes P in bf16 for dV = P^T dO where the plain version (and
-JAX) keep it in fp32: one more relative rounding of at most 2^-9 per
-term, well inside 2e-2; every other product has bf16-exact operands and
-fp32 sums in both.
+absolute (fp32 in both). The flash forward and backward run on the
+tensor cores, bf16 directly and fp32 in 3xTF32. The bf16 forward rounds
+P to bf16 before P V, as JAX does; the bf16 backward takes P in bf16 for
+dV = P^T dO where the plain version (and JAX) keep it in fp32: one more
+relative rounding of at most 2^-9 per term, well inside 2e-2; every
+other product has bf16-exact operands and fp32 sums in both.
 """
 
 import numpy as np
@@ -257,6 +257,73 @@ def test_flash_forward_3xtf32_matches_plain(dev, case):
     assert torch.equal(fa.flash_attention_cuda(q, k, v, **kw), out)
 
 
+# the fp32 backward on the tensor cores in 3xTF32, same layouts: the
+# towers' shapes (DINOv2 D 64 over 261 keys, SigLIP D 72 right-padded),
+# the Llama training shape (D 128, causal, right-padded), a rectangular
+# causal offset, rows not 16-byte aligned (4-byte copies), D 100 padded to
+# 128 under a left pad, and a row that sees no key
+BWD_TF32 = [
+    (2, 261, 261, 4, 64, False, 0, 0, 0, "qkv"),
+    (2, 256, 256, 3, 72, False, 0, 0, 5, "qkv"),
+    (2, 448, 448, 2, 128, True, 0, 0, 40, "qkv"),
+    (2, 97, 161, 2, 128, True, 64, 0, 7, "contig"),
+    (1, 75, 75, 2, 128, True, 0, 0, 0, "odd"),
+    (2, 70, 110, 2, 100, False, 0, 9, 0, "contig"),
+    (2, 33, 33, 2, 72, True, 0, 33, 0, "qkv"),
+]
+
+
+@pytest.mark.parametrize("case", BWD_TF32, ids=[str(c) for c in BWD_TF32])
+def test_flash_backward_3xtf32_matches_plain(dev, case):
+    """The fp32 dQ and dK/dV (3xTF32 on the tensor cores; separate and
+    fused) against the plain backward at 1e-4: ragged tiles, padded D,
+    misaligned rows, strided views, rectangular causal offsets; exact zeros
+    for rows that see no key and keys no query sees; the same bits on a
+    rerun."""
+    from emmax_torch.ops import flash_attention as fa
+
+    q, k, v, do, kw = _bwd_inputs(dev, case, dtype=torch.float32)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    di = (out * do).sum(-1)
+    want = fa.flash_attention_bwd_reference(q, k, v, do, lse, di, **kw)
+    B, Lq, S = q.shape[0], q.shape[1], k.shape[1]
+    dense = fa._dense_mask(Lq, S, kw["kv_mask"], kw["causal"],
+                           kw["q_offset"], dev)
+    dense = (torch.ones(1, 1, Lq, S, dtype=torch.bool, device=dev)
+             if dense is None else dense).expand(B, 1, Lq, S)[:, 0]
+    dead_q, dead_k = ~dense.any(dim=2), ~dense.any(dim=1)
+    for fused in (False, True):
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di, fused=fused,
+                                          **kw)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            _close(a, b, 1e-4)
+        dq, dk, dv = got
+        assert not dq[dead_q].any() and not dk[dead_k].any()
+        assert not dv[dead_k].any()
+        again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, di,
+                                            fused=fused, **kw)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+def test_backward_counts_launches_by_dtype(dev):
+    """dQ and dK/dV count each launch under the inputs' dtype."""
+    from emmax_torch.ops import flash_attention as fa
+
+    for kernel in (fa.DQ_KERNEL, fa.DKV_KERNEL):
+        kernel.reset_counts()
+    for dtype, fused in ((torch.float32, False), (torch.float32, True),
+                         (torch.bfloat16, False)):
+        q, k, v, do, kw = _bwd_inputs(dev, BWD_TF32[-1], dtype=dtype)
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        di = (out.float() * do.float()).sum(-1)
+        fa.flash_attention_bwd_cuda(q, k, v, do, lse, di, fused=fused, **kw)
+    assert fa.DQ_KERNEL.launches_by == {"float32": 1, "bfloat16": 1}
+    assert fa.DKV_KERNEL.launches_by == {"float32": 2, "bfloat16": 1}
+    assert (fa.DQ_KERNEL.launches, fa.DKV_KERNEL.launches) == (2, 3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_dq_partials_one_per_kv_tile(dev, dtype):
     """The fused dK/dV kernel writes ceil(S / BWD_KV_TILE) fp32 partials,
@@ -273,9 +340,10 @@ def test_fused_dq_partials_one_per_kv_tile(dev, dtype):
     kw = dict(causal=True, q_offset=q_offset)
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     di = (out.float() * do.float()).sum(-1)
-    (args, _keep), (_, _, _, part) = fa.bwd_launch_args(
-        q, k, v, do, lse, di, fused=True, **kw)
-    fa.DKV_KERNEL.launch(*args)
+    (args, _keep), outs = fa.bwd_launch_args(q, k, v, do, lse, di,
+                                             fused=True, **kw)
+    fa.DKV_KERNEL.launch(*args)     # writes dk and dv too: keep `outs`
+    part = outs[3]
     n_tiles = -(-S // fa.BWD_KV_TILE)
     assert part.shape == (n_tiles, B, Lq, H, D) and part.dtype == torch.float32
     for j in range(1, n_tiles):   # rows before the tile's first key

@@ -147,6 +147,7 @@ STAGES = [
     ("vla-train", "linear-warmup+cosine-decay", 0.1, 0.5, 1, 16),
     ("vla-last-layer-train", "constant", 0.1, 1.0, 1, None),
     ("vla-train", "constant", 0.0, 1.0, 2, None),
+    ("vla-full-train", "constant", 0.0, 1.0, 1, None),
 ]
 
 
@@ -204,8 +205,15 @@ def test_train_step_matches_jax(setup, stage, sched, wd, clip, accum,
         assert off.mean() <= OUTLIERS, (path, off.sum())
         np.testing.assert_allclose(got, want[path], rtol=0,
                                    atol=STEPS * LR, err_msg=path)
-        if path.startswith("vision"):          # frozen in every stage here
+        if path.startswith("vision") and freeze_vision:
             np.testing.assert_array_equal(got, initial[path])
+    if not freeze_vision:
+        # the towers are trained: every leaf the features use moves; the
+        # final norms stay (the feature contract applies none)
+        for path, got in _leaves_np(tstate.params):
+            if path.startswith("vision"):
+                used = "final_norm" not in path
+                assert np.array_equal(got, initial[path]) != used, path
     if stage == "vla-last-layer-train":
         for path, got in _leaves_np(tstate.params):
             if path.startswith("llm/layers"):  # frozen layers: untouched,
