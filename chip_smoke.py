@@ -12,9 +12,12 @@ Phases, each raising on failure (the script then exits non-zero):
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes: flash-attention forward for DINOv2 and SigLIP (batch 1,
    a served frame, and batch 6, an admission's frames), the Llama prefill
-   (left-padded, into the whole cache) and the Llama training shape; int4
-   matmul at M = 1, 6, 48 and the prefill length for every Llama-2-7B
-   weight shape, through the stacked view. The flash forward runs bf16 on
+   (left-padded, into the whole cache), the Llama training shape and the
+   speculative engine's tail refresh (24 queries at q_offset F - 24 into
+   the closed loop's whole cache); int4 matmul at M = 1, 6, 13 and 43 (the
+   speculative verifier's linear and (7, 5)-tree chunks), 24 (the tail
+   refresh), 48 and the prefill length for every Llama-2-7B weight shape,
+   through the stacked view. The flash forward runs bf16 on
    the bf16 tensor-core kernel and fp32 on the 3xTF32 one (exact zeros
    and the LSE sentinel on rows that see no key, the same bits on a rerun,
    in both); the int4 matmul's bf16 x the tensor-core kernel, fp32 x the
@@ -31,6 +34,11 @@ Phases, each raising on failure (the script then exits non-zero):
    beside it);
 4. the tiny config on the card (fp32, through the kernels) against the
    same weights on the CPU (plain versions): identical greedy tokens;
+   4b. the tiny config with an action-bin region (vocab 2048) on the
+   ``SpeculativeEngine`` (linear drafts, the (5, 3) tree, ``draft_layers=1``,
+   the int8 cache; each over three closed-loop frames with prefix tail 24):
+   the CPU plain engine's tokens exactly, the CPU speculative engine's
+   steps and prefill kinds;
 5. Emma-X at full width (random weights from a seeded generator):
    ``load_vla("prism-dinosiglip-224px+7b")`` with bf16 weights and then
    with int4 weights, a few ``generate_actions`` requests each on 256x256
@@ -105,7 +113,25 @@ Phases, each raising on failure (the script then exits non-zero):
    blocks, dQ and dK/dV 1 each), then optimizer steps: finite losses,
    step ms, peak memory, and one profiled step.
 
-Phases 7, 11 and 12 run after phase 10; ``--kernels-only`` skips them. The line before the last is the
+10b. ``speculative``: Emma-X at full width with int4 weights on the
+   closed-loop ``SpeculativeEngine`` at ``bench.py:370-382``'s settings
+   (draft_k 12, the (7, 5) action tree, the int8 cache, prefix tail 24, a
+   vision cache of 4 at 0.05): a warm-up and a timed episode of 12 frames
+   of 96 forced GCOT tokens built as ``bench.py:286-338`` builds them;
+   each frame reproduces its stream in the verifier steps of
+   ``scripts/sim_spec_drafts.simulate_steps`` on the same stream and
+   history, prefills in full only where its patches change and refreshes
+   the prompt tail elsewhere, and launches the bf16 flash forward once per
+   decoder layer and the fp32 one only on a vision-cache miss; ms per
+   frame (cold, warm median), verifier forwards per token, peak memory,
+   the device-busy share of one profiled warm frame. Then ``load_vla(...,
+   speculative=True)`` -> ``generate_actions`` over 3 closed-loop frames
+   under int4 and then bf16 weights beside the plain ``EmmaXVLA``: request
+   ms, the bf16 fence's verdict, and the same tokens or, at the first
+   difference, a printed near-tie (``free_run``).
+
+Phases 4b, 10b, 7, 11 and 12 run after phase 10 (4b with phase 4);
+``--kernels-only`` skips them. The line before the last is the
 card's name and power limit; the one before it a JSON object with one
 entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -164,6 +190,16 @@ PAGED_KW = dict(num_slots=6, n_pages=34, page_size=128,
 PAGED_LENGTHS = (1, 127, 128, 129, 458, 768)   # kernel check, ragged rows
 SHARED_QUERIES, SHARED_NEW = 4, 8
 PROFILE_BURST = 8              # the profiled burst's length, in steps
+# the closed loop (bench.py:69-73,370-382): 12 frames of 96 forced GCOT
+# tokens (8 actions of 7 bins and ~40 of text); draft_k 12, the (7, 5)
+# action tree, the int8 cache, prefix tail 24, a vision cache (4, 0.05)
+SPEC_FRAMES, SPEC_TOKENS, SPEC_ACTIONS = 12, 96, 8
+TAIL = 24
+SPEC_KW = dict(draft_k=12, prefix_tail=TAIL, quantized_cache=True,
+               action_tree=(7, 5))
+SPEC_W_LINEAR, SPEC_W_TREE = 13, 43   # verifier widths: 12 + 1, 1 + 7 + 35
+SPEC_PROFILE_FRAME = 2
+FREE_FRAMES = 3                # the free runs' closed-loop frames
 
 
 T0 = time.perf_counter()
@@ -319,6 +355,25 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
+def spec_shape(tokenizer, num_patches: int) -> tuple:
+    """(prompt tokens, bucket, fused length, cache slots) of a closed-loop
+    frame at ``SPEC_KW``'s settings (``SpeculativeEngine.generate_ids``)."""
+    from emmax_torch.serving.engine import _round_up, pick_bucket
+
+    n = len(tokenizer.encode(spec_prompt(0)))
+    bucket = pick_bucket(n)
+    return n, bucket, num_patches + bucket, _round_up(
+        num_patches + bucket + SPEC_TOKENS + SPEC_W_TREE)
+
+
+def spec_prompt(f: int) -> str:
+    """``bench.py:337``: the closed loop's prompt at frame f; the gripper
+    coordinates move and keep their width (and so the prompt's length)."""
+    return ("In: What action should the robot take to achieve the "
+            "instruction\nINSTRUCTION: \nPut the eggplant in the "
+            f"pot\nCURRENT GRIPPER: [{104 + 2 * f:03d}, {98 + f:03d}]\nOut:")
+
+
 def prefill_shape(tokenizer, num_patches: int) -> tuple:
     """(prompt tokens, bucket, fused length, cache slots) of one request."""
     from emmax_torch.serving.engine import _round_up, pick_bucket
@@ -333,10 +388,12 @@ def prefill_shape(tokenizer, num_patches: int) -> tuple:
 # ----------------------------------------------------------------- kernels --
 
 def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype,
-                rpad=0):
+                rpad=0, q_offset=0):
     """Kernel vs plain at one shape in fp32 (the 3xTF32 kernel) and in bf16
     (the bf16 tensor-core kernel); ``n_pad`` left-pad slots in every row and
-    ``rpad`` right-pad slots in the last (kv_mask). Query rows that see no
+    ``rpad`` right-pad slots in the last (kv_mask); the queries sit at slots
+    [q_offset, q_offset + Lq) and the slots past them are empty (the
+    kv_mask of a cache). Query rows that see no
     key must be exact zeros with the LSE sentinel bit for bit, and a
     rerun must give the same bits. Timed in ``dtype``, the one the main
     path gives it. In fp32 the bound counts the three TF32 products the
@@ -354,11 +411,11 @@ def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype,
     kv_mask = None
     if n_pad or rpad or S != Lq:
         kv_mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
-        kv_mask[:, n_pad:Lq] = True           # the slots the prefill wrote
+        kv_mask[:, n_pad:q_offset + Lq] = True   # the slots written so far
         if rpad:
             kv_mask[-1, Lq - rpad:] = False
-    kw = dict(kv_mask=kv_mask, causal=causal, q_offset=0)
-    dense = fa._dense_mask(Lq, S, kv_mask, causal, 0, dev)
+    kw = dict(kv_mask=kv_mask, causal=causal, q_offset=q_offset)
+    dense = fa._dense_mask(Lq, S, kv_mask, causal, q_offset, dev)
     dead = (~dense.any(dim=-1)[:, 0]).expand(B, Lq) if dense is not None \
         else torch.zeros((B, Lq), dtype=torch.bool, device=dev)
     errs = {}
@@ -372,7 +429,7 @@ def check_flash(dev, gen, name, B, Lq, S, H, D, causal, n_pad, dtype,
         if got[dead].any() or not bool((lse[dead] == NEG_INF).all()):
             raise AssertionError(f"flash {name} {dt}: rows that see no key "
                                  f"are not exact zeros with the sentinel")
-        if n_pad and causal and not dead[:, :n_pad].all():
+        if n_pad and causal and not q_offset and not dead[:, :n_pad].all():
             raise AssertionError(f"flash {name}: pad rows see a key")
     rel32, rel = errs[torch.float32][1], errs[torch.bfloat16][1]
     if not (rel32 <= FP32_RTOL and rel <= BF16_RTOL):
@@ -479,10 +536,13 @@ def kernel_phase(dev):
     from emmax_torch.vla.tokenizer import load_tokenizer
 
     cfg = emma_x_vlm_config()
-    n_tok, bucket, Lq, S = prefill_shape(load_tokenizer(None),
-                                         cfg.num_patches)
+    tok = load_tokenizer(None)
+    n_tok, bucket, Lq, S = prefill_shape(tok, cfg.num_patches)
     log(f"prefill shape: prompt {n_tok} tokens, bucket {bucket}, fused "
         f"{Lq}, cache {S} slots")
+    s_tok, s_bucket, s_fused, s_cache = spec_shape(tok, cfg.num_patches)
+    log(f"closed-loop shape: prompt {s_tok} tokens, bucket {s_bucket}, "
+        f"fused {s_fused}, cache {s_cache} slots")
     gen = torch.Generator(dev)
     gen.manual_seed(0)
     (_, dino), (_, sig) = cfg.vision
@@ -509,11 +569,21 @@ def kernel_phase(dev):
     D, Fh, V = llm.dim, llm.hidden_dim, llm.vocab_size
     shapes = [("wq/wk/wv/wo", D, D), ("w_gate/w_up", D, Fh),
               ("w_down", Fh, D), ("lm_head", D, V)]
-    # M 1: decode; 6: the batched engines' slots; 48: the speculative tree
-    # verify's upper bound; Lq: prefill
+    # M 1: decode; 6: the batched engines' slots; 13: the speculative
+    # verifier's linear chunk (draft_k 12 + 1); 24: the tail refresh; 43:
+    # the (7, 5) tree's chunk; 48: its former upper bound; Lq: prefill
     int4 = [check_int4(dev, gen, f"{n} M{M} D{d} F{f}", M, d, f)
-            for M in (1, 6, 48, Lq) for n, d, f in shapes]
-    flash += towers[2:]
+            for M in (1, 6, SPEC_W_LINEAR, TAIL, SPEC_W_TREE, 48, Lq)
+            for n, d, f in shapes]
+    flash += towers[2:] + [
+        # the prefix-KV tail refresh: the last TAIL fused slots again, at
+        # their offset, into the closed loop's whole cache
+        check_flash(dev, gen, f"llama tail refresh B1 Lq{TAIL} S{s_cache} "
+                    f"q_offset{s_fused - TAIL} H{llm.n_heads} "
+                    f"D{llm.head_dim} causal pad{s_bucket - s_tok}", 1, TAIL,
+                    s_cache, llm.n_heads, llm.head_dim, True,
+                    s_bucket - s_tok, torch.bfloat16,
+                    q_offset=s_fused - TAIL)]
     for r in flash + int4:
         log("kernel " + json.dumps(r))
     return flash, int4
@@ -1225,6 +1295,433 @@ def batched_phase(dev, kernels):
     return runs
 
 
+# ------------------------------------------------------------- speculative --
+
+def tiny_spec_parity(dev):
+    """Phase 4b: the tiny config with an action-bin region (vocab 2048) in
+    fp32 through the kernels on the card. ``SpeculativeEngine`` under each
+    setting runs three closed-loop frames (one image, the gripper moving,
+    prefix tail 24 and a vision cache, each frame drafting from the
+    previous output, the prompt ending in a 7-bin action run): its tokens
+    equal the CPU plain engine's exactly, and its steps, prefill kinds and
+    tree use the CPU ``SpeculativeEngine``'s."""
+    from emmax_torch.models.vlm import init_vlm_params, tiny_vlm_config
+    from emmax_torch.serving.engine import (GenerateOptions, ServingEngine,
+                                            VisionCache)
+    from emmax_torch.serving.speculative import SpeculativeEngine
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+    from emmax_torch.vla.tokenizer import ByteLevelTokenizer
+
+    cfg = tiny_vlm_config(vocab_size=2048)
+    params = init_vlm_params(torch.Generator().manual_seed(3), cfg)
+    on_card = _tree_to(params, dev)
+    tok = ByteLevelTokenizer(vocab_size=2048)
+    opts = GenerateOptions(eos_id=tok.eos_id)
+    rng = np.random.default_rng(21)
+    pixels = {n: torch.from_numpy(rng.normal(
+        size=(1, v.img_size, v.img_size, 3)).astype(np.float32))
+        for n, v in cfg.vision}
+    frame = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    suffix = [int(t) for t in ActionTokenizer(tok).encode_to_ids(
+        rng.uniform(-0.5, 0.5, 7))]
+    prompts = ["In: What action should the robot take\nCURRENT GRIPPER: "
+               f"[{100 + 4 * f:03d}, 090]\nOut:" for f in range(3)]
+    settings = {"linear": dict(action_drafts=False),
+                "tree (5, 3)": dict(action_tree=(5, 3)),
+                "draft_layers 1": dict(draft_layers=1, action_drafts=False),
+                "int8 cache": dict(quantized_cache=True,
+                                   action_tree=(5, 3))}
+    steps = {}
+    for name, kw in settings.items():
+        plain = ServingEngine(cfg, params, tok, options=opts,
+                              quantized_cache=kw.get("quantized_cache",
+                                                     False), device="cpu")
+        want = [plain.generate_ids([p], pixels, max_new_tokens=24,
+                                   suffix_ids=suffix)[0].tolist()
+                for p in prompts]
+        runs = []
+        for device, p in ((torch.device("cpu"), params), (dev, on_card)):
+            eng = SpeculativeEngine(cfg, p, tok, options=opts, draft_k=12,
+                                    prefix_tail=TAIL,
+                                    vision_cache=VisionCache(threshold=0.0),
+                                    device=device, **kw)
+            frames, prev = [], None
+            for prompt in prompts:
+                out = eng.generate_ids(
+                    [prompt], {k: v.to(device) for k, v in pixels.items()},
+                    max_new_tokens=24, suffix_ids=suffix, draft_context=prev,
+                    frame_key=frame)
+                prev = out[0]
+                frames.append((out[0].tolist(), eng.last_steps,
+                               eng.last_prefill, eng.last_tree))
+            runs.append(frames)
+        cpu, card = runs
+        if [f[0] for f in card] != want:
+            raise AssertionError(f"tiny speculative {name}: card tokens "
+                                 f"{[f[0] for f in card]} != CPU plain "
+                                 f"{want}")
+        if [f[1:] for f in card] != [f[1:] for f in cpu]:
+            raise AssertionError(f"tiny speculative {name}: card steps / "
+                                 f"prefills / tree {[f[1:] for f in card]}"
+                                 f" != CPU {[f[1:] for f in cpu]}")
+        if [f[2] for f in card] != ["full", "tail", "tail"]:
+            raise AssertionError(f"tiny speculative {name}: prefills "
+                                 f"{[f[2] for f in card]}")
+        steps[name] = [f[1] for f in card]
+    log("tiny speculative parity (card == CPU plain tokens, steps == CPU "
+        "speculative, 3 frames x 24 tokens): " + json.dumps(steps))
+    return steps
+
+
+def closed_loop_inputs(tok):
+    """``bench.py:286-338``: per frame the forced GCOT stream (the text
+    scaffold, then a window of 8 consecutive drifting actions that slides
+    by one action a frame), the cold frame's seed template, and the host
+    camera frames (frame 0 brightened by f levels at frame f)."""
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+
+    atok = ActionTokenizer(tok)
+    rng_a = np.random.default_rng(1)
+    base = rng_a.uniform(-0.4, 0.4, size=7)
+    rollout = [np.clip(base + rng_a.normal(scale=0.02, size=7), -1, 1)
+               for _ in range(SPEC_ACTIONS + SPEC_FRAMES)]
+
+    def stream(f):
+        text = ("REASONING: the gripper must reach the eggplant before "
+                "grasping it\nSUBTASK: move the gripper to the eggplant"
+                f"\nNEXT GRIPPER: [{112 + 2 * f}, {96 + f}]\nMOVEMENT:\n"
+                f"move forward {21 - f} steps; move left 3 steps; close "
+                "gripper;\nPOLICIES: ")
+        ids = tok.encode(text)[:SPEC_TOKENS - SPEC_ACTIONS * 7]
+        for a in rollout[f:f + SPEC_ACTIONS]:
+            ids.extend(int(t) for t in atok.encode_to_ids(a))
+        return np.asarray(ids[:SPEC_TOKENS], np.int64)
+
+    seed = tok.encode(
+        "REASONING: the gripper must \nSUBTASK: move the gripper to "
+        "the \nNEXT GRIPPER: [1, 1]\nMOVEMENT:\nmove forward 1 steps; "
+        "move left 1 steps; close gripper;\nPOLICIES: "
+        "REASONING: the gripper must reach the \nSUBTASK: move the "
+        "gripper to the \nNEXT GRIPPER: [10, 10]\nMOVEMENT:\nmove "
+        "backward 2 steps; move right 2 steps; open gripper;\nPOLICIES: "
+        "REASONING: the gripper must reach the eggplant \nSUBTASK: "
+        "grasp the eggplant\nNEXT GRIPPER: [12, 9]\nMOVEMENT:\nmove "
+        "down 3 steps; close gripper;\nPOLICIES: ",
+        add_special_tokens=False)
+    img = np.random.default_rng(0).integers(0, 256, size=(1, 256, 256, 3),
+                                            dtype=np.uint8)
+    frames = [np.clip(img[0].astype(np.int32) + f, 0, 255).astype(np.uint8)
+              for f in range(SPEC_FRAMES)]
+    return ([stream(f) for f in range(SPEC_FRAMES)],
+            np.asarray(seed, np.int64), img, frames)
+
+
+def sim_context(eng, prompt: str, prev: np.ndarray) -> np.ndarray:
+    """The lookup history ``SpeculativeEngine.generate_ids`` builds before
+    the first step, as ``scripts/sim_spec_drafts.simulate_steps`` takes
+    it: the prompt's last 8 tokens, the draft context without its EOS
+    padding, the prompt."""
+    ids, mask = eng._prepare_host([prompt])
+    real = np.flatnonzero(prev != eng.options.eos_id)
+    prev = prev[:real[-1] + 1 if real.size else 1]
+    return np.concatenate([ids[0, -8:], prev, ids[0][mask[0]]])
+
+
+def closed_loop_episode(eng, inputs, pixels, fa_kernel,
+                        int4_kernel) -> list:
+    """One episode of ``SPEC_FRAMES`` frames, ``bench.py``'s ``episode``:
+    frame f decodes its forced stream drafting from frame f - 1's output
+    (frame 0 from the seed template), its host frame keying the vision
+    cache, its pixels frame 0's + 0.001 f. Per frame: host ms (ending in
+    the output's fetch), steps, prefill kind, vision-cache misses and each
+    kernel's launches."""
+    streams, prev, _, frames = inputs
+    rows = []
+    for f in range(SPEC_FRAMES):
+        noisy = {k: v + 0.001 * f for k, v in pixels.items()}
+        before = (fa_kernel.launches_by.get("bfloat16", 0),
+                  fa_kernel.launches_by.get("float32", 0),
+                  int4_kernel.launches, eng.vision_cache.misses)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate_ids([spec_prompt(f)], noisy,
+                               max_new_tokens=SPEC_TOKENS,
+                               forced_tokens=streams[f], draft_context=prev,
+                               frame_key=frames[f])
+        ms = (time.perf_counter() - t0) * 1e3
+        after = (fa_kernel.launches_by.get("bfloat16", 0),
+                 fa_kernel.launches_by.get("float32", 0),
+                 int4_kernel.launches, eng.vision_cache.misses)
+        rows.append({"ms": ms, "steps": eng.last_steps,
+                     "prefill": eng.last_prefill, "out": out[0],
+                     "context": prev,
+                     **dict(zip(("flash_bf16", "flash_fp32", "int4",
+                                 "vision_misses"),
+                                (a - b for a, b in zip(after, before))))})
+        prev = out[0]
+    return rows
+
+
+def check_episode(eng, inputs, rows, full_at, name) -> None:
+    """The closed loop's gates: each frame reproduces its forced stream
+    with ``simulate_steps``'s verifier steps on the same stream and
+    history; prefills in full exactly on ``full_at`` and refreshes the
+    tail elsewhere; launches the bf16 flash forward once per decoder
+    layer (the prefill or the tail refresh: the verifier's chunks take the
+    plain path) and the fp32 one once per tower block on a vision-cache
+    miss only; launches the int4 kernel."""
+    sys.path.insert(0, str(__import__("pathlib").Path(
+        __file__).resolve().parent / "scripts"))
+    from sim_spec_drafts import simulate_steps
+
+    streams = inputs[0]
+    lo, hi = eng.action_bins
+    # the towers' blocks whose token count takes the kernel (>= 8)
+    blocks = sum(v.depth - 1 for _, v in eng.cfg.vision
+                 if v.num_patches + v.num_prefix >= 8)
+    for f, r in enumerate(rows):
+        if not np.array_equal(r["out"], streams[f]):
+            raise AssertionError(f"{name} frame {f}: output is not the "
+                                 "forced stream")
+        sim = simulate_steps(
+            streams[f], sim_context(eng, spec_prompt(f), r["context"]),
+            k=SPEC_KW["draft_k"], bin_lo=lo, bin_hi=hi, stride=True,
+            tree=SPEC_KW["action_tree"], max_new=SPEC_TOKENS,
+            vocab_size=eng.cfg.llm.vocab_size)
+        want = "full" if f in full_at else "tail"
+        launches = (r["flash_bf16"], r["flash_fp32"])
+        if (r["steps"] != sim or r["prefill"] != want
+                or launches != (eng.cfg.llm.n_layers,
+                                blocks * r["vision_misses"])
+                or r["int4"] == 0):
+            raise AssertionError(
+                f"{name} frame {f}: steps {r['steps']} (simulator {sim}), "
+                f"prefill {r['prefill']} (want {want}), flash bf16 / fp32 "
+                f"launches {launches} (want {eng.cfg.llm.n_layers}, "
+                f"{blocks} x {r['vision_misses']} misses), int4 "
+                f"{r['int4']}")
+
+
+def logits_both_ways(vla, frame, prompt, tokens, p) -> tuple:
+    """The fp32 logits that predict token ``p`` of the greedy output
+    ``tokens``, after a fresh prefill: (decode of tokens[:p] one at a time,
+    as plain decode runs them; tokens[:p] in one chunk at a per-row cursor,
+    as a verifier forward runs them)."""
+    from emmax_torch.models.llama import embed_tokens, init_kv_cache
+    from emmax_torch.models.vlm import fuse_multimodal, llm_apply
+    from emmax_torch.serving.engine import _round_up, encode_frame
+
+    eng = vla.engine
+    params = eng.model.tree()
+    llm, cfg = params["llm"], eng.cfg.llm
+    ids, mask = eng._prepare([prompt])
+    dev = ids.device
+    patches = encode_frame(params, eng.cfg, vla._pixels(frame),
+                           attn_impl=eng.attn_impl)
+    toks = torch.tensor([list(tokens[:p])], dtype=torch.int64, device=dev)
+    out = []
+    with torch.inference_mode():
+        for chunked in (False, True):
+            cache = init_kv_cache(cfg, 1, _round_up(
+                eng.cfg.num_patches + ids.shape[1] + p + 1),
+                dtype=llm["embed"].dtype, device=dev)
+            embeds, fmask, _, positions = fuse_multimodal(
+                patches, embed_tokens(llm, ids), mask)
+            lg, cache = llm_apply(llm, cfg, embeds, mask=fmask,
+                                  positions=positions, kv_cache=cache,
+                                  attn_impl=eng.attn_impl)
+            nxt = positions[:, -1:] + 1
+            if p and chunked:
+                cache["len"] = torch.tensor([cache["len"]], device=dev)
+                lg, _ = llm_apply(llm, cfg, embed_tokens(llm, toks),
+                                  positions=nxt + torch.arange(p, device=dev),
+                                  kv_cache=cache, attn_impl=eng.attn_impl)
+            for i in range(p if not chunked else 0):
+                lg, _ = llm_apply(llm, cfg, embed_tokens(llm, toks[:, i:i + 1]),
+                                  positions=nxt + i, kv_cache=cache,
+                                  attn_impl=eng.attn_impl)
+            out.append(lg[0, -1].float())
+    return tuple(out)
+
+
+def free_run(dev, quantize) -> dict:
+    """(b) / (c): ``load_vla(..., speculative=True)`` and
+    ``generate_actions`` over ``FREE_FRAMES`` closed-loop frames (one
+    camera image, the gripper moving: frames 1 on are vision-cache hits
+    and tail refreshes), beside the plain ``EmmaXVLA`` on the same weights
+    and frames. Gate: the same tokens; where they differ, the logits at
+    the first differing position are recomputed both ways
+    (``logits_both_ways``) and in each the two tokens' logits must lie
+    within ``BF16_RTOL`` of the largest |logit| (a near-tie, printed with
+    how far the two ways' logits lie apart)."""
+    import emmax_torch
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.serving.speculative import _spec_bf16_oom_risk
+
+    label = quantize or "bf16"
+    torch.cuda.reset_peak_memory_stats(dev)
+    spec = emmax_torch.load_vla(MODEL_ID, quantize=quantize, device="cuda",
+                                speculative=True, seed=0)
+    load_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    fenced = _spec_bf16_oom_risk(spec.engine.model.tree())
+    plain = EmmaXVLA(spec.cfg, spec.engine.model.tree(), spec.tokenizer,
+                     spec.transforms, llm_family=spec.llm_family,
+                     device="cuda")
+    frame = np.random.default_rng(13).integers(0, 256, (256, 256, 3),
+                                               dtype=np.uint8)
+    prompts = [spec.get_prompt(TASK, (120 + 4 * f, 90 + 2 * f))
+               for f in range(FREE_FRAMES)]
+    rec = {"path": label, "fenced": fenced,
+           "fallback": spec.engine._bf16_fallback,
+           "load_peak_gb": load_peak_gb}
+    outs = {}
+    for name, vla in (("speculative", spec), ("plain", plain)):
+        captured = []
+        generate_ids = vla.engine.generate_ids
+
+        def capture(*a, _gen=generate_ids, _out=captured, **kw):
+            _out.append(_gen(*a, **kw)[0])
+            return _out[-1][None]
+
+        vla.engine.generate_ids = capture
+        vla.generate_actions(frame, prompts[0], max_new_tokens=MAX_NEW)
+        captured.clear()                                   # warm-up frame
+        if name == "speculative":
+            vla._last_output_ids = None
+            vla.engine._prefix = None
+        ms, kinds, steps = [], [], []
+        for prompt in prompts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            actions, _ = vla.generate_actions(frame, prompt,
+                                              max_new_tokens=MAX_NEW)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for a in actions:
+                if a.shape != (7,) or not np.isfinite(a).all():
+                    raise AssertionError(f"{label} {name}: bad action {a!r}")
+            kinds.append(getattr(vla.engine, "last_prefill", None))
+            steps.append(getattr(vla.engine, "last_steps", None))
+        del vla.engine.generate_ids
+        outs[name] = [o.tolist() for o in captured]
+        rec[name] = {"request_ms": ms, "prefill": kinds, "steps": steps}
+    if not spec.engine._bf16_fallback and rec["speculative"]["prefill"] != [
+            "full"] + ["tail"] * (FREE_FRAMES - 1):
+        raise AssertionError(f"{label}: prefills "
+                             f"{rec['speculative']['prefill']}")
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rec["tokens_equal"] = outs["speculative"] == outs["plain"]
+    if not rec["tokens_equal"]:
+        f = next(i for i, (a, b) in enumerate(zip(outs["speculative"],
+                                                  outs["plain"])) if a != b)
+        a, b = outs["speculative"][f], outs["plain"][f]
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        one, chunk = logits_both_ways(spec, frame, prompts[f], b, p)
+
+        def gap(lg):   # the two tokens' logits, relative to the largest
+            return abs(lg[a[p]] - lg[b[p]]).item() / lg.abs().max().item()
+
+        tie = {"frame": f, "position": p, "speculative_token": a[p],
+               "plain_token": b[p], "argmax_decode": int(one.argmax()),
+               "argmax_chunk": int(chunk.argmax()),
+               "gap_decode": gap(one), "gap_chunk": gap(chunk),
+               "decode_vs_chunk": (one - chunk).abs().max().item()
+               / one.abs().max().item(), "tolerance": BF16_RTOL}
+        rec["near_tie"] = tie
+        log(f"free run {label}: first difference " + json.dumps(tie))
+        if not (tie["gap_decode"] <= BF16_RTOL
+                and tie["gap_chunk"] <= BF16_RTOL):
+            raise AssertionError(f"free run {label}: tokens differ at frame "
+                                 f"{f} position {p}, not a near-tie: "
+                                 f"{tie}")
+    del spec, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("free run " + json.dumps(rec))
+    return rec
+
+
+def speculative_phase(dev, kernels) -> dict:
+    """Full-width Emma-X (int4 weights, random from the seeded generator)
+    on the closed-loop ``SpeculativeEngine`` at ``bench.py``'s settings:
+    (a) a warm-up episode and a timed episode of forced frames, gated by
+    ``check_episode``, and one warm frame profiled; (b) the free run under
+    int4 weights and (c) under bf16 weights (``free_run``)."""
+    from emmax_torch.models.load import load
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops import int4_matmul
+    from emmax_torch.ops.image import preprocess_for_towers
+    from emmax_torch.serving.engine import GenerateOptions, VisionCache
+    from emmax_torch.serving.speculative import SpeculativeEngine
+
+    cfg, params, tok, transforms, _ = load(MODEL_ID, quantize="int4",
+                                           device="cuda", seed=0)
+    inputs = closed_loop_inputs(tok)
+    pixels = preprocess_for_towers(torch.from_numpy(inputs[2]).to(dev),
+                                   transforms)
+    eng = SpeculativeEngine(cfg, params, tok,
+                            options=GenerateOptions(eos_id=tok.eos_id),
+                            vision_cache=VisionCache(capacity=4,
+                                                     threshold=0.05),
+                            device="cuda", **SPEC_KW)
+    warm = closed_loop_episode(eng, inputs, pixels, fa.KERNEL,
+                               int4_matmul.KERNEL)
+    # frame f's host frame is frame 0's + f levels and a hit is within
+    # 6.4 levels (0.05), newest entry first: the first episode misses at
+    # frames 0 and 7; the second hits frame 0's own entry (not the
+    # prefix's frame-7 patches) and at frame 1 frame 7's, then keeps those
+    # (tests/test_torch_speculative_actions.py holds the same frames
+    # against the JAX engine)
+    check_episode(eng, inputs, warm, {0, 7}, "warm-up episode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.reset_counts()
+    timed = closed_loop_episode(eng, inputs, pixels, fa.KERNEL,
+                                int4_matmul.KERNEL)
+    launches = {k.name: k.launches for k in kernels}
+    launches_by = {k.name: dict(k.launches_by) for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_episode(eng, inputs, timed, {0, 1}, "timed episode")
+    for k in ("flash_fwd", "int4_matmul"):
+        if launches[k] == 0:
+            raise AssertionError(f"closed loop launched no {k}")
+    frame_ms = [r["ms"] for r in timed]
+    warm_ms = float(np.median(frame_ms[1:]))
+    # frame 2 once more, as it ran (its host frame hits the prefix's
+    # patches: a tail refresh), against its own unprofiled time
+    f = SPEC_PROFILE_FRAME
+    noisy = {k: v + 0.001 * f for k, v in pixels.items()}
+    profile = profile_step(lambda: eng.generate_ids(
+        [spec_prompt(f)], noisy, max_new_tokens=SPEC_TOKENS,
+        forced_tokens=inputs[0][f], draft_context=timed[f]["context"],
+        frame_key=inputs[3][f]), timed[f]["ms"])
+    profile.update(frame=f, prefill=eng.last_prefill, steps=eng.last_steps)
+    if (eng.last_prefill, eng.last_steps) != ("tail", timed[f]["steps"]):
+        raise AssertionError(f"profiled frame: {eng.last_prefill}, "
+                             f"{eng.last_steps} steps")
+    episode = {
+        "frames": SPEC_FRAMES, "tokens_per_frame": SPEC_TOKENS,
+        "settings": {**SPEC_KW, "vision_cache": [4, 0.05]},
+        "frame_ms": frame_ms, "cold_frame_ms": frame_ms[0],
+        "warm_frame_ms_median": warm_ms,
+        "steps": [r["steps"] for r in timed],
+        "warm_up_steps": [r["steps"] for r in warm],
+        "prefills": [r["prefill"] for r in timed],
+        "warm_up_prefills": [r["prefill"] for r in warm],
+        "verifier_forwards_per_token": sum(r["steps"] for r in timed)
+        / (SPEC_FRAMES * SPEC_TOKENS),
+        "peak_gb": peak_gb, "launches": launches, "launches_by": launches_by,
+        "warm_up_flash_fp32": [r["flash_fp32"] for r in warm],
+        "vision_cache": [eng.vision_cache.hits, eng.vision_cache.misses],
+        "profile": profile}
+    log("closed loop " + json.dumps(episode))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"episode": episode, "int4": free_run(dev, "int4"),
+            "bf16": free_run(dev, None)}
+
+
 # ---------------------------------------------------------------- training --
 
 def _count(tree) -> int:
@@ -1274,7 +1771,9 @@ def profile_step(run, step_ms: float) -> dict:
              ("paged_merge", "merge_kernel<"))
     attn = {key: 0.0 for key, _ in parts}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # the engines' emmax_torch.* ranges span kernels; they are not one
+        if (e.device_type == DeviceType.CUDA
+                and not e.name.startswith("emmax_torch.")):
             ms = e.time_range.elapsed_us() / 1e3
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
             for key, part in parts:
@@ -1788,6 +2287,7 @@ def main(argv) -> int:
     log_phase("tiny_parity")
     tiny_parity(dev)
     tiny_steps = tiny_batched_parity(dev)
+    tiny_spec = tiny_spec_parity(dev)
     log_phase("run_path")
     bf16 = run_path(dev, None, kernels)
     if bf16["launches"]["flash_fwd"] == 0:
@@ -1800,6 +2300,9 @@ def main(argv) -> int:
     batched = batched_phase(dev, serving_kernels)
     log("batched serving " + json.dumps({"tiny_steps": tiny_steps,
                                          "runs": batched}))
+    log_phase("speculative_phase")
+    spec = speculative_phase(dev, serving_kernels)
+    log("speculative " + json.dumps({"tiny_steps": tiny_spec, **spec}))
     log_phase("align7b_phase")
     align = align7b_phase(dev, kernels)
     log_phase("vla_train_phase")
@@ -1828,6 +2331,8 @@ def main(argv) -> int:
     full_step = full["launches_per_step"]
     step = align["launches_per_step"]
     prefill = flash[2]                        # the Llama prefill shape
+    tail = flash[-1]                          # the tail-refresh shape
+    episode = spec["episode"]
     phases = bf16["profile"].get("phases", {})
     towers = {
         "launches_per_encode": bf16["flash_fwd_launches_per_encode"],
@@ -1851,6 +2356,12 @@ def main(argv) -> int:
                        "library_ms": prefill["library_ms"],
                        "bound_ms": prefill["bound_ms"],
                        "launches_int4_path": q4["launches"]["flash_fwd"]},
+              closed_loop={**{k: tail[k] for k in (
+                  "shape", "ms", "eager_ms", "plain_ms", "library_ms",
+                  "bound_ms", "bound_by", "max_abs_err")},
+                  "launches_timed_episode":
+                  episode["launches_by"]["flash_fwd"],
+                  "frames": SPEC_FRAMES},
               towers_fp32={**towers, "launches_vla_full_train_fp32_step":
                            full_step["flash_fwd"]["float32"]}),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
@@ -1887,6 +2398,7 @@ def main(argv) -> int:
               "emmax_tpu/ops/int4_matmul.py:404",
               q4["launches"]["int4_matmul"],
               launches_path="int4 serving requests",
+              launches_closed_loop_episode=episode["launches"]["int4_matmul"],
               resources=int4_res,
               shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms",
                                          "library_ms", "bound_ms",

@@ -267,9 +267,10 @@ def _cache_read(cache: Params, key: str, i: int,
 
 
 def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
-                  cfg: LlamaConfig, attn_impl: str):
+                  cfg: LlamaConfig, attn_impl: str, chunk_mask=None):
     """One decoder layer that writes its K/V into the cache at ``t0`` (host
-    int or per-row [B] cursors) and attends over the layer's whole cache."""
+    int or per-row [B] cursors) and attends over the layer's whole cache
+    (the chunk's own slots under ``chunk_mask`` where one is given)."""
     B, L, _ = h.shape
     x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
     k_new = mm(x, p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
@@ -287,9 +288,11 @@ def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
     v_c = _cache_read(cache, "v", i, h.dtype)
     q = mm(x, p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
-    # query i (at slot t0 + i) attends to valid slots j <= t0 + i
+    # query i (at slot t0 + i) attends to valid slots j <= t0 + i, or
+    # under a tree chunk mask to its ancestors' chunk slots
     attn = multi_head_attention(q, k_c, v_c, kv_mask=slot_mask, causal=True,
-                                q_offset=t0, impl=attn_impl)
+                                q_offset=t0, impl=attn_impl,
+                                chunk_mask=chunk_mask)
     h = h + mm(attn.reshape(B, L, cfg.n_heads * cfg.head_dim), p["wo"])
     return _mlp(h, p, cfg)
 
@@ -302,7 +305,8 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                   attn_impl: str = "auto",
                   remat: Remat = False,
                   logits_dtype: torch.dtype = torch.float32,
-                  return_hidden: bool = False
+                  return_hidden: bool = False,
+                  chunk_attn_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (logits [B, L, V], the kv_cache or None).
 
@@ -318,7 +322,16 @@ def llama_forward(params: Params, cfg: LlamaConfig,
     ``scan_weight_barrier`` is an XLA scheduling fence inside its layer
     scan; eager PyTorch has no such rewrite to fence, so nothing here
     stands for it.
+
+    ``chunk_attn_mask`` ([L, L] bool, cache path only): the ancestor
+    matrix of a speculative verification tree. The L tokens attend every
+    past slot and chunk slot j iff ``chunk_attn_mask[i, j]`` instead of
+    causally (``ops/attention._dense_mask``); the caller gives the tree's
+    ``positions`` (depths, not slot order).
     """
+    if chunk_attn_mask is not None and kv_cache is None:
+        raise ValueError("chunk_attn_mask requires a kv_cache (tree chunks "
+                         "verify against an existing context)")
     B, L, _ = inputs_embeds.shape
     if positions is None:
         if mask is not None:
@@ -353,7 +366,8 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                 True if mask is None else mask.to(torch.bool))
         for i in range(cfg.n_layers):
             h = _cached_layer(h, layer_slice(layers, i), cos, sin, kv_cache,
-                              i, t0, kv_cache["mask"], cfg, attn_impl)
+                              i, t0, kv_cache["mask"], cfg, attn_impl,
+                              chunk_attn_mask)
         kv_cache["len"] = t0 + L
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)

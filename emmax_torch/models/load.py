@@ -72,8 +72,10 @@ def load_vla(model_id: str, dtype: torch.dtype = torch.bfloat16,
              tokenizer_path: Optional[str] = None, attn_impl: str = "auto",
              quantize: Optional[str] = None, device="cuda", seed: int = 0,
              norm_stats: Optional[dict] = None,
-             proprio_stats: Optional[dict] = None):
-    """Load a VLA policy -> ``EmmaXVLA`` (see :func:`load`)."""
+             proprio_stats: Optional[dict] = None,
+             speculative: bool = False):
+    """Load a VLA policy -> ``EmmaXVLA`` (see :func:`load`);
+    ``speculative`` serves it on the closed-loop ``SpeculativeEngine``."""
     from emmax_torch.models.vla import EmmaXVLA
 
     cfg, params, tokenizer, transforms, family = load(
@@ -81,4 +83,5 @@ def load_vla(model_id: str, dtype: torch.dtype = torch.bfloat16,
         quantize=quantize, device=device, seed=seed)
     return EmmaXVLA(cfg, params, tokenizer, transforms,
                     norm_stats=norm_stats, proprio_stats=proprio_stats,
-                    llm_family=family, attn_impl=attn_impl, device=device)
+                    llm_family=family, attn_impl=attn_impl,
+                    speculative=speculative, device=device)

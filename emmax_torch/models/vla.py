@@ -1,7 +1,7 @@
 """Emma-X VLA policy: prompts in, 7-DoF actions out.
 
-Port of ``emmax_tpu/models/vla.py`` on the plain ``ServingEngine``
-(the speculative closed-loop engine is a later slice):
+Port of ``emmax_tpu/models/vla.py``, on the plain ``ServingEngine`` or
+(``speculative=True``) the ``SpeculativeEngine``:
 
 - ``generate_actions(image, prompt_text, type)``: decode the grounded
   chain of thought, parse it with the Solver, un-normalize with q01/q99
@@ -12,6 +12,11 @@ Port of ``emmax_tpu/models/vla.py`` on the plain ``ServingEngine``
   ``return_string_probabilities`` the first-token probabilities of
   candidate strings;
 - ``get_prompt(task_label, gripper_position)``.
+
+With ``speculative`` and ``closed_loop`` each frame keys a
+``VisionCache`` on its host uint8 image, drafts from the previous frame's
+output and refreshes only the prompt tail of the previous frame's KV
+cache where the patches are reused (``serving/speculative.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from emmax_torch.models.vlm import VLMConfig
 from emmax_torch.ops.image import ImageTransformConfig, preprocess_for_towers
 from emmax_torch.serving.engine import (GenerateOptions, ServingEngine,
-                                        resolve_device)
+                                        VisionCache, resolve_device)
 from emmax_torch.vla.action_tokenizer import (ActionTokenizer,
                                               unnormalize_actions,
                                               unnormalize_proprio)
@@ -54,6 +59,11 @@ class EmmaXVLA:
         attn_impl: str = "auto",
         action_dim: int = 7,
         options: Optional[GenerateOptions] = None,
+        speculative: bool = False,
+        draft_k: int = 12,
+        closed_loop: bool = True,
+        prefix_tail: int = 24,
+        vision_cache_threshold: float = 0.0,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -65,8 +75,28 @@ class EmmaXVLA:
         self.llm_family = llm_family
         self.action_dim = action_dim
         options = options or GenerateOptions(eos_id=tokenizer.eos_id)
-        self.engine = ServingEngine(cfg, params, tokenizer, options=options,
-                                    attn_impl=attn_impl, device=self.device)
+        if speculative:
+            # greedy-exact speculative decode. `closed_loop` adds the
+            # cross-frame stack: vision cache, prefix-KV tail refresh and
+            # drafts from the previous frame's output. At the default
+            # threshold 0.0 only byte-identical frames reuse patches (the
+            # output stays exact); a positive threshold trades slightly
+            # stale patches for skipping the towers on near-identical frames
+            from emmax_torch.serving.speculative import SpeculativeEngine
+
+            self.engine = SpeculativeEngine(
+                cfg, params, tokenizer, options=options, attn_impl=attn_impl,
+                draft_k=draft_k, prefix_tail=prefix_tail if closed_loop else 0,
+                vision_cache=(VisionCache(capacity=4,
+                                          threshold=vision_cache_threshold)
+                              if closed_loop else None),
+                device=self.device)
+        else:
+            self.engine = ServingEngine(cfg, params, tokenizer,
+                                        options=options, attn_impl=attn_impl,
+                                        device=self.device)
+        self._closed_loop = speculative and closed_loop
+        self._last_output_ids = None
         self.action_tokenizer = ActionTokenizer(tokenizer)
         self.solver = Solver(self.action_tokenizer)
 
@@ -103,13 +133,30 @@ class EmmaXVLA:
     # -- generation ------------------------------------------------------------
     def generate(self, image, prompt_text: str,
                  max_new_tokens: int = 512) -> str:
-        """Free-form text generation for ONE frame."""
+        """Free-form text generation for ONE frame. In closed-loop
+        speculative mode the raw frame keys the vision cache and the
+        previous frame's output seeds the drafts."""
         if isinstance(image, (list, tuple)) and len(image) != 1:
             raise ValueError("generate/generate_actions/predict_action take "
                              "ONE frame")
+        frame = _as_uint8_array(image[0] if isinstance(image, (list, tuple))
+                                else image)
+        if self._closed_loop:
+            out = self.engine.generate_ids(
+                [prompt_text], self._pixels(image),
+                max_new_tokens=max_new_tokens,
+                draft_context=self._last_output_ids, frame_key=frame)
+            self._last_output_ids = out[0]
+            return self._decode_row(out[0])
         out = self.engine.generate_ids([prompt_text], self._pixels(image),
-                                       max_new_tokens=max_new_tokens)
+                                       max_new_tokens=max_new_tokens,
+                                       **self._frame_kw(frame))
         return self._decode_row(out[0])
+
+    def _frame_kw(self, frame) -> dict:
+        """The host frame keys the vision cache, where the engine has one
+        (every engine takes ``frame_key``)."""
+        return {"frame_key": frame}
 
     def generate_batch(self, images, prompt_texts: List[str],
                        max_new_tokens: int = 512,
@@ -164,7 +211,8 @@ class EmmaXVLA:
         out = self.engine.generate_ids(
             [pb.get_prompt()], self._pixels(image),
             max_new_tokens=self.action_dim,
-            suffix_ids=(self.tokenizer.empty_token_id,))
+            suffix_ids=(self.tokenizer.empty_token_id,),
+            **self._frame_kw(_as_uint8_array(image)))
         norm_actions = self.action_tokenizer.decode_token_ids_to_actions(
             np.asarray(out[0][:self.action_dim]))
         return unnormalize_actions(norm_actions,

@@ -1,3 +1,6 @@
-from emmax_torch.serving.engine import GenerateOptions, ServingEngine
+from emmax_torch.serving.engine import (GenerateOptions, ServingEngine,
+                                        VisionCache)
+from emmax_torch.serving.speculative import SpeculativeEngine
 
-__all__ = ["ServingEngine", "GenerateOptions"]
+__all__ = ["ServingEngine", "GenerateOptions", "VisionCache",
+           "SpeculativeEngine"]

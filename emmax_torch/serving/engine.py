@@ -3,10 +3,13 @@
 Prompts are left-padded to a length bucket so that every row shares one
 cache cursor. A generation encodes the frame (both towers + projector),
 splices the patches after BOS, prefills a preallocated KV cache of
-``patches + bucket + max_new`` slots rounded to 128, and decodes greedily
-(or by temperature / top-p sampling) with EOS early exit. The cache is
-updated in place. The loop asks the card whether every row is done only
-every ``DONE_CHECK_EVERY`` steps: the output is EOS-padded either way.
+``patches + bucket + max_new`` slots rounded to 128 (int8 with
+``quantized_cache``), and decodes greedily (or by temperature / top-p
+sampling) with EOS early exit. The cache is updated in place. A
+``VisionCache`` reuses the patches of a near-identical earlier frame
+(batch 1, the closed control loop). The loop asks the card whether every
+row is done only every ``DONE_CHECK_EVERY`` steps: the output is
+EOS-padded either way.
 
 The decode loop's semantics are the JAX package's ``_generate_multimodal``:
 the first token comes from the prefill's last logits, each step writes
@@ -99,6 +102,67 @@ def encode_frame(params, cfg: VLMConfig, pixel_values: Dict, *,
     return encode_images(params, cfg, pixel_values, attn_impl=attn_impl)
 
 
+class VisionCache:
+    """Host-side cross-frame patch-embedding cache (batch-1 closed loop).
+
+    Keyed on a downsampled mean-pooled fingerprint of the raw pixels; a
+    lookup hits when the mean absolute difference against a cached frame is
+    at most ``threshold`` (normalized-pixel units). ``threshold=0`` means
+    exact-frame reuse only.
+    """
+
+    def __init__(self, capacity: int = 4, threshold: float = 0.0,
+                 pool: int = 16) -> None:
+        self.capacity = capacity
+        self.threshold = threshold
+        self.pool = pool
+        self.entries = {}  # fingerprint shape -> [(fp, patches)] newest last
+        self.hits = 0
+        self.misses = 0
+
+    def _pooled(self, img: np.ndarray) -> np.ndarray:
+        """[B, H, W, C] -> the pool x pool block means, flattened."""
+        B = img.shape[0]
+        h, w = img.shape[1] // self.pool, img.shape[2] // self.pool
+        img = img[:, : h * self.pool, : w * self.pool]
+        img = img.reshape(B, h, self.pool, w, self.pool, -1)
+        return img.mean(axis=(2, 4)).ravel()
+
+    def fingerprint(self, pixel_values: Dict[str, torch.Tensor]
+                    ) -> np.ndarray:
+        """Fingerprint of normalized tower pixels (one device fetch per
+        tower)."""
+        return np.concatenate([
+            self._pooled(pixel_values[name].float().cpu().numpy())
+            for name in sorted(pixel_values)])
+
+    def fingerprint_host(self, frame) -> np.ndarray:
+        """Fingerprint of a host uint8 camera frame, scaled to roughly
+        match the normalized-pixel threshold (no device fetch)."""
+        img = np.asarray(frame, np.float32) / 127.5 - 1.0
+        return self._pooled(img[None] if img.ndim == 3 else img)
+
+    def _ring(self, fp: np.ndarray) -> list:
+        # host-keyed and pixel-keyed fingerprints have different shapes and
+        # never match each other: each kind keeps its own capacity ring, so
+        # one kind of caller cannot evict the other's entries
+        return self.entries.setdefault(fp.shape, [])
+
+    def lookup(self, fp: np.ndarray):
+        for cached_fp, patches in reversed(self._ring(fp)):
+            if np.mean(np.abs(cached_fp - fp)) <= self.threshold:
+                self.hits += 1
+                return patches
+        self.misses += 1
+        return None
+
+    def store(self, fp: np.ndarray, patches) -> None:
+        ring = self._ring(fp)
+        ring.append((fp, patches))
+        if len(ring) > self.capacity:
+            ring.pop(0)
+
+
 @torch.inference_mode()
 def _prefill_last_logits(params, cfg: VLMConfig, input_ids: torch.Tensor,
                          mask: torch.Tensor, pixel_values: Dict, *,
@@ -122,6 +186,8 @@ def _prefill_last_logits(params, cfg: VLMConfig, input_ids: torch.Tensor,
 class ServingEngine:
     """Host-side wrapper: tokenizing, bucketing and left-padding around the
     prefill and decode loop. ``params`` must lie on ``device``.
+    ``quantized_cache`` keeps K/V in int8 (``models/llama.init_kv_cache``);
+    ``vision_cache`` reuses patches across frames (batch 1).
 
     After each call, ``last_timings`` holds that generation's phases:
     vision encode, prefill (ending with the first token) and decode times
@@ -135,6 +201,8 @@ class ServingEngine:
     def __init__(self, cfg: VLMConfig, params, tokenizer,
                  options: Optional[GenerateOptions] = None,
                  attn_impl: str = "auto", buckets=DEFAULT_BUCKETS,
+                 quantized_cache: bool = False,
+                 vision_cache: Optional[VisionCache] = None,
                  device="cuda") -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -147,12 +215,33 @@ class ServingEngine:
         self.options = options or GenerateOptions()
         self.attn_impl = attn_impl
         self.buckets = buckets
+        self.quantized_cache = quantized_cache
+        self.vision_cache = vision_cache
         self.last_timings: Dict[str, float] = {}
         self._step = 0
 
-    def _prepare(self, prompts, suffix_ids=()
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(ids, mask) [B, bucket] on the device, LEFT-padded."""
+    def _vision_input(self, pixel_values: Dict, frame_key=None) -> Dict:
+        """Cross-frame patch reuse through ``vision_cache`` (batch 1 only):
+        ``{"patches": ...}`` from a hit, or from encoding the frame now and
+        storing it. ``frame_key``: the host uint8 frame to fingerprint
+        instead of the device pixels."""
+        if "patches" in pixel_values or self.vision_cache is None:
+            return pixel_values
+        if next(iter(pixel_values.values())).shape[0] != 1:
+            return pixel_values
+        vc = self.vision_cache
+        fp = (vc.fingerprint_host(frame_key) if frame_key is not None
+              else vc.fingerprint(pixel_values))
+        patches = vc.lookup(fp)
+        if patches is None:
+            patches = encode_frame(self.model.tree(), self.cfg, pixel_values,
+                                   attn_impl=self.attn_impl)
+            vc.store(fp, patches)
+        return {"patches": patches}
+
+    def _prepare_host(self, prompts, suffix_ids=()
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, mask) [B, bucket] numpy arrays, LEFT-padded."""
         enc = [self.tokenizer.encode(p) + list(suffix_ids) for p in prompts]
         bucket = pick_bucket(max(len(e) for e in enc), self.buckets)
         ids = np.full((len(enc), bucket), self.tokenizer.pad_id, np.int64)
@@ -161,6 +250,12 @@ class ServingEngine:
             e = e[:bucket]
             ids[i, bucket - len(e):] = e
             mask[i, bucket - len(e):] = True
+        return ids, mask
+
+    def _prepare(self, prompts, suffix_ids=()
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids, mask) [B, bucket] on the device, LEFT-padded."""
+        ids, mask = self._prepare_host(prompts, suffix_ids)
         return (torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device))
 
@@ -181,7 +276,8 @@ class ServingEngine:
         B, L = ids.shape
         cache_len = _round_up(cfg.num_patches + L + max_new)
         cache = init_kv_cache(cfg.llm, B, cache_len,
-                              dtype=llm["embed"].dtype, device=self.device)
+                              dtype=llm["embed"].dtype, device=self.device,
+                              quantized=self.quantized_cache)
         marks = self._marks(4)
         host_t = [0.0] * 4
 
@@ -240,18 +336,49 @@ class ServingEngine:
 
     def generate_ids(self, prompts, pixel_values: Dict[str, torch.Tensor],
                      max_new_tokens: Optional[int] = None,
-                     suffix_ids=()) -> np.ndarray:
+                     suffix_ids=(), frame_key=None) -> np.ndarray:
         """prompts: list[str]; pixel_values: tower name -> [B, H, W, 3]
         normalized, on the device, or ``{"patches": [B, P, D]}`` (see
-        :func:`resolve_patches`). Returns [B, max_new] token ids."""
+        :func:`resolve_patches`). ``frame_key``: the host uint8 frame that
+        keys the vision cache. Returns [B, max_new] token ids."""
         ids, mask = self._prepare(prompts, suffix_ids)
         max_new = (self.options.max_new_tokens if max_new_tokens is None
                    else max_new_tokens)
         self._step += 1
         generator = torch.Generator(self.device)
         generator.manual_seed(self.options.seed + self._step)
-        out = self._generate(ids, mask, pixel_values, max_new, generator)
+        out = self._generate(ids, mask,
+                             self._vision_input(pixel_values,
+                                                frame_key=frame_key),
+                             max_new, generator)
         return out.cpu().numpy()
+
+    def _zero_pixels(self) -> Dict[str, torch.Tensor]:
+        return {name: torch.zeros((1, v.img_size, v.img_size, 3),
+                                  device=self.device)
+                for name, v in self.cfg.vision}
+
+    def warmup(self, example_prompts, pixel_values=None,
+               max_new_tokens: Optional[int] = None,
+               batch_sizes=(1,)) -> list:
+        """Run a throwaway generation for every (batch size, prompt) pair a
+        deployment will send, before its first real request (the first
+        call of a shape pays the kernels' and allocator's first-use costs).
+        ``pixel_values``: tower input for the runs (zeros if None).
+        Returns the warmed (batch, bucket) pairs."""
+        max_new = (self.options.max_new_tokens if max_new_tokens is None
+                   else max_new_tokens)
+        if pixel_values is None:
+            pixel_values = self._zero_pixels()
+        warmed = []
+        for b in batch_sizes:
+            pv = {k: (v[:1].expand((b,) + v.shape[1:]) if v.shape[0] != b
+                      else v) for k, v in pixel_values.items()}
+            for p in example_prompts:
+                self.generate_ids([p] * b, pv, max_new_tokens=max_new)
+                warmed.append((b, pick_bucket(len(self.tokenizer.encode(p)),
+                                              self.buckets)))
+        return warmed
 
     def first_token_probs(self, prompts, pixel_values,
                           candidate_ids) -> np.ndarray:
@@ -261,7 +388,8 @@ class ServingEngine:
         ids, mask = self._prepare(prompts)
         cache_len = _round_up(self.cfg.num_patches + ids.shape[1] + 8)
         logits = _prefill_last_logits(self.model.tree(), self.cfg, ids, mask,
-                                      pixel_values, cache_len=cache_len,
+                                      self._vision_input(pixel_values),
+                                      cache_len=cache_len,
                                       attn_impl=self.attn_impl)
         probs = torch.softmax(logits, dim=-1).cpu().numpy()
         sel = probs[:, np.asarray(candidate_ids)]

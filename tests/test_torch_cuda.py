@@ -401,6 +401,8 @@ def test_int4_kernel_matches_plain(dev, case, dtype):
 INT4_TC = [
     (2, 256, 200, 64), (6, 512, 4100, 128), (17, 128, 384, 32),
     (48, 1024, 1000, 64), (130, 1024, 4100, 64), (1, 11008, 4096, 128),
+    # the speculative verifier's widths: draft_k 12 + 1, the (7, 5) tree
+    (13, 4096, 4100, 128), (43, 11008, 1000, 128), (43, 4096, 4096, 128),
 ]
 
 
@@ -621,3 +623,70 @@ def test_paged_attention_split_ranges_rerun_and_graph_replay(dev, case, kdt):
     graph.replay()
     assert torch.equal(replayed, pa.paged_attention_cuda(
         q, k, v, lengths.flip(0).contiguous(), table, **kw))
+
+
+def test_flash_forward_at_the_tail_refresh_shape(dev):
+    """The speculative engine's prefix-KV tail refresh: 24 queries at
+    q_offset = F - 24 attending causally into the whole cache (Lq < 8 is
+    not it: 24 queries take the kernel), the prompt's left pad and the
+    slots past F masked; bf16 (the serving dtype) and fp32."""
+    from emmax_torch.ops import flash_attention as fa
+
+    S, F, pad, H, D = 640, 384, 7, 32, 128
+    mask = torch.zeros(1, S, dtype=torch.bool, device=dev)
+    mask[0, pad:F] = True
+    kw = dict(kv_mask=mask, causal=True, q_offset=F - 24)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        g = torch.Generator(dev).manual_seed(6)
+        q = torch.randn(1, 24, H, D, device=dev, generator=g).to(dtype)
+        cache = torch.randn(2, 1, S, H, D, device=dev, generator=g).to(dtype)
+        before = fa.KERNEL.launches
+        got = fa.flash_attention(q, cache[0], cache[1], **kw)
+        assert fa.KERNEL.launches == before + 1
+        _close(got, fa.flash_attention_reference(q, cache[0], cache[1],
+                                                 **kw), tol)
+
+
+def test_speculative_engine_on_card_gives_the_cpu_tokens(dev):
+    """The tiny config in fp32 through the kernels: a tree engine with an
+    int8 cache across three closed-loop frames (a tail refresh after a
+    tail refresh) gives the CPU engine's tokens and steps."""
+    from emmax_torch.models.vlm import init_vlm_params, tiny_vlm_config
+    from emmax_torch.serving.engine import GenerateOptions, VisionCache
+    from emmax_torch.serving.speculative import SpeculativeEngine
+    from emmax_torch.vla.tokenizer import ByteLevelTokenizer
+
+    cfg = tiny_vlm_config(vocab_size=2048)
+    params = init_vlm_params(torch.Generator().manual_seed(3), cfg)
+    tok = ByteLevelTokenizer(vocab_size=2048)
+    rng = np.random.default_rng(1)
+    px = {n: torch.from_numpy(rng.normal(size=(1, v.img_size, v.img_size, 3))
+                              .astype(np.float32)) for n, v in cfg.vision}
+    frame = np.zeros((64, 64, 3), np.uint8)
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        eng = SpeculativeEngine(
+            cfg, _to(params, device), tok,
+            options=GenerateOptions(eos_id=tok.eos_id), draft_k=12,
+            action_tree=(5, 3), quantized_cache=True, prefix_tail=24,
+            vision_cache=VisionCache(threshold=0.0), device=device)
+        out, prev = [], None
+        for x in (100, 104, 108):
+            prompt = ("In: What action should the robot take\nCURRENT "
+                      f"GRIPPER: [{x:03d}, 090]\nOut:")
+            ids = eng.generate_ids([prompt], _to(px, device),
+                                   max_new_tokens=24, draft_context=prev,
+                                   frame_key=frame)
+            prev = ids[0]
+            out.append((ids.tolist(), eng.last_steps, eng.last_prefill))
+        runs.append(out)
+    assert runs[0] == runs[1]
+    assert [r[2] for r in runs[1]] == ["full", "tail", "tail"]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

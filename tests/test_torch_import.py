@@ -40,7 +40,8 @@ def test_import_loads_no_jax():
             "emmax_torch.data.collators", "emmax_torch.data.prefetch",
             "emmax_torch.conf.vla", "emmax_torch.conf.registry",
             "emmax_torch.serving.continuous", "emmax_torch.serving.paged",
-            "emmax_torch.ops.paged_attention"} <= set(MODULES)
+            "emmax_torch.ops.paged_attention",
+            "emmax_torch.serving.speculative"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -79,12 +80,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
     from emmax_torch.serving.continuous import ContinuousServingEngine
     from emmax_torch.serving.paged import PagedServingEngine
+    from emmax_torch.serving.speculative import SpeculativeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         emmax_torch.load_vla("tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        emmax_torch.load_vla("tiny", speculative=True)
     for engine in (ServingEngine, ContinuousServingEngine,
-                   PagedServingEngine):
+                   PagedServingEngine, SpeculativeEngine):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine(tiny_vlm_config(), {}, ByteLevelTokenizer())
 
