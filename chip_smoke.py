@@ -48,6 +48,27 @@ Phases, each raising on failure (the script then exits non-zero):
    fails the run, and the towers' fp32 forward must launch depth - 1
    times per tower in every encode of that run); then one shorter request under ``torch.profiler`` for
    each phase's device busy time, and each phase's bound;
+5b. ``checkpoint``: phase 5's seeded full-width bf16 params written by
+   ``emmax_torch.convert_weights`` as OpenVLA-layout safetensors (shards of
+   at most 5 GB, the index, the flat config.json with ``norm_stats``) into
+   a temporary directory and served back through ``load_vla(dir)``: in
+   bf16 every leaf equal to the params in memory, the in-memory model's
+   greedy tokens and text, the written statistics; with
+   ``quantize="int4"`` (the loader quantizes each stacked leaf on the
+   host) the tree equal to the same host route applied to the params in
+   memory, that model's tokens, the launch gates of a request (fp32 flash
+   forward depth - 1 per tower, the bf16 one once per decoder layer, int4
+   on all 7 weights of every layer and the lm_head in every forward), the
+   load's device peak under the int4 tree plus one bf16 stacked leaf, and
+   the codes and scales in which the card's quantizer (phase 5's route)
+   differs, printed; then a reference ``.pt`` loaded back bit for bit; a
+   run dir of the trainer's ``--smoke_test`` on the card giving the same
+   tokens on the card and the CPU; and ``--pretrained_checkpoint`` at the
+   vla-train cut (``VLA_LAYERS``): the trainer's conversion of a ``.pt``
+   equal to the params in memory, with the same step-0 loss and projector
+   gradient. A bf16 load's host heap (malloc's bytes in use) grows by
+   less than one bf16 stacked leaf (no host copy of the tree). Export and
+   load seconds, host RSS and heap peaks and the device peak are printed;
 6. training kernels (in phase 3's call): the forward's LSE, dQ and dK/dV
    (separate and fused) against the plain backward at the Llama training
    shape (B2, fused 448, H32, D128, causal, one row right-padded) and the
@@ -130,8 +151,8 @@ Phases, each raising on failure (the script then exits non-zero):
    ms, the bf16 fence's verdict, and the same tokens or, at the first
    difference, a printed near-tie (``free_run``).
 
-Phases 4b, 10b, 7, 11 and 12 run after phase 10 (4b with phase 4);
-``--kernels-only`` skips them. The line before the last is the
+Phases 4b, 5b, 10b, 7, 11 and 12 run after phase 10 (4b with phase 4,
+5b with phase 5); ``--kernels-only`` skips them. The line before the last is the
 card's name and power limit; the one before it a JSON object with one
 entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1080,6 +1101,465 @@ def run_path(dev, quantize, kernels):
             profile["phases"]["decode"]["busy_ms_per_forward"] / per_forward)
     log("path " + json.dumps(summary))
     return summary
+
+
+# ------------------------------------------------------------- checkpoints --
+
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_size_t) for n in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+        "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+
+class HostPeak:
+    """This process's host memory on entry and at its peak while the block
+    runs, in two measures: ``rss``, the resident set from /proc/self/statm
+    (pages mapped from a checkpoint's files count), sampled every 5 ms,
+    and ``heap``, the bytes malloc holds in use (glibc's ``mallinfo2``:
+    ``uordblks + hblkhd``), where every CPU tensor torch allocates lives
+    (a converted host tree, the quantizer's work) and no mapped file page
+    does. /proc/self/status on the card machine has no ``RssAnon`` /
+    ``RssFile`` to split the resident set instead. ``mallinfo2`` locks
+    malloc's arenas and walks their free lists, so it is read only every
+    ``HEAP_EVERY`` samples (100 ms)."""
+
+    HEAP_EVERY = 20
+
+    def __init__(self) -> None:
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        libc = ctypes.CDLL("libc.so.6")
+        libc.mallinfo2.restype = _MallInfo2
+        self._mallinfo2 = libc.mallinfo2
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _read(self, heap: bool = True) -> dict:
+        with open("/proc/self/statm") as f:
+            got = {"rss": int(f.read().split()[1]) * self._page}
+        if heap:
+            m = self._mallinfo2()
+            got["heap"] = m.uordblks + m.hblkhd
+        return got
+
+    def _sample(self, heap: bool = True) -> None:
+        for name, value in self._read(heap).items():
+            self.peak[name] = max(self.peak[name], value)
+
+    def _run(self) -> None:
+        tick = 0
+        while not self._stop.wait(0.005):
+            tick += 1
+            self._sample(tick % self.HEAP_EVERY == 0)
+
+    def __enter__(self) -> "HostPeak":
+        self.base = self._read()
+        self.peak = dict(self.base)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+    def gb(self) -> dict:
+        return {f"{name}_{when}_gb": v[name] / 1e9 for name in ("rss", "heap")
+                for when, v in (("base", self.base), ("peak", self.peak))}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def no_host_copy(host: HostPeak, limit: int, what: str) -> float:
+    """Gate that a load converted straight onto the card: the host heap
+    grew by less than ``limit`` bytes (one bf16 stacked leaf), not by a
+    copy of the tree. Returns the growth in GB."""
+    grown = host.peak["heap"] - host.base["heap"]
+    if not grown < limit:
+        raise AssertionError(f"{what}: host heap grew {grown} B, not below "
+                             f"one bf16 stacked leaf ({limit} B)")
+    return grown / 1e9
+
+
+def _differing_leaves(got, want) -> list:
+    """Paths where two trees differ in structure, dtype, shape or bits."""
+    from emmax_torch.models.tree import leaves_with_path
+
+    a, b = dict(leaves_with_path(got)), dict(leaves_with_path(want))
+    if set(a) != set(b):
+        return sorted(set(a) ^ set(b))
+    return [p for p in a if a[p].dtype != b[p].dtype
+            or a[p].shape != b[p].shape
+            or not torch.equal(a[p], b[p].to(a[p].device))]
+
+
+def served_request(vla, frame, prompt, kernels, quantized: bool) -> dict:
+    """One ``generate_actions`` request with the launch gates: the towers'
+    fp32 flash forward depth - 1 times a tower, the bf16 one once per
+    decoder layer (the prefill), and with int4 weights the int4 kernel on
+    every decoder weight read (7 a layer and the lm_head, each forward)."""
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.perf_counter()
+    actions, text = vla.generate_actions(frame, prompt, type="act",
+                                         max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    by = {k.name: dict(k.launches_by) for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
+    cfg = vla.cfg
+    forwards = 1 + vla.engine.last_timings["decode_forwards"]
+    want = {"float32": sum(v.depth - 1 for _, v in cfg.vision),
+            "bfloat16": cfg.llm.n_layers}
+    if by["flash_fwd"] != want:
+        raise AssertionError(f"flash_fwd launches by dtype {by['flash_fwd']}"
+                             f" != {want} in one request")
+    int4 = (7 * cfg.llm.n_layers + 1) * forwards if quantized else 0
+    if launches["int4_matmul"] != int4:
+        raise AssertionError(f"{launches['int4_matmul']} int4 launches in "
+                             f"{forwards} forwards, not {int4}")
+    if not all(a.shape == (7,) and np.isfinite(a).all() for a in actions):
+        raise AssertionError(f"bad actions {actions!r}")
+    return {"request_ms": ms, "text": text, "forwards": forwards,
+            "launches": launches, "flash_fwd_by_dtype": by["flash_fwd"]}
+
+
+def greedy_ids(vla, frame, prompt, n: int = MAX_NEW) -> list:
+    return vla.engine.generate_ids([prompt], vla._pixels(frame),
+                                   max_new_tokens=n)[0].tolist()
+
+
+def checkpoint_phase(dev, kernels) -> dict:
+    """Serve and fine-tune from checkpoints written by the port's
+    exporters from phase 5's seeded full-width params (``load(MODEL_ID,
+    seed=0)``):
+
+    1. an OpenVLA-layout Hugging Face dir (``convert_weights.save_hf``:
+       shards of at most 5 GB, their index, the flat config.json with
+       ``norm_stats``) -> ``load_vla(dir)`` in bf16 (every leaf equal, the
+       in-memory model's greedy tokens, the written stats, the host heap
+       grown by less than one bf16 stacked leaf: the leaves go straight
+       from the mapped shards to the card) and with
+       ``quantize="int4"`` (the tree equal to the loader's route applied to
+       the in-memory params: quantized on the host, leaf by leaf; the
+       in-memory model's tokens under that tree; the launch gates; the
+       device peak of the load under the int4 tree plus one bf16 stacked
+       leaf);
+    2. a reference ``.pt`` (``save_reference_pt``) -> ``load_vla(dir)``:
+       every leaf equal, the host heap gated as in 1;
+    3. a run dir of ``emmax_torch.train --smoke_test`` on the card ->
+       ``load_vla(run_dir)`` on the card and on the CPU: the same tokens;
+    4. the vla-train cut (``VLA_LAYERS`` layers) as a reference ``.pt`` ->
+       the trainer's ``--pretrained_checkpoint`` conversion: every leaf,
+       step 0's loss and projector gradient equal those of the params in
+       memory.
+    Export and load seconds, each load's host RSS and heap (base and peak)
+    and the int4 load's device peak are printed. Each temporary directory
+    goes before the next step."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from emmax_torch import convert_weights as cw
+    from emmax_torch.models.load import load, load_vla, place_params
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.serving.quant import QUANT_KEYS, quantize_vlm_params
+
+    out = {}
+    cfg, params, tok, transforms, family = load(MODEL_ID, device="cuda",
+                                                seed=0)
+    stats = {"bridge_orig": {"action": {
+        "q01": [-0.05] * 6 + [0.0], "q99": [0.05] * 6 + [1.0],
+        "mask": [True] * 6 + [False]}}}
+    frame = np.random.default_rng(7).integers(0, 256, (256, 256, 3),
+                                              dtype=np.uint8)
+    ids = cw.vlm_ids(MODEL_ID)
+    leaf_bytes = max(_tree_bytes(params["llm"]["layers"][k])
+                     for k in QUANT_KEYS)
+
+    def in_memory(tree):
+        return EmmaXVLA(cfg, tree, tok, transforms, norm_stats=stats,
+                        llm_family=family, device=dev)
+
+    ref = in_memory(params)
+    prompt = ref.get_prompt(TASK, gripper_position=(128, 96))
+    ref_ids = greedy_ids(ref, frame, prompt)
+    ref_text = ref.generate_actions(frame, prompt,
+                                    max_new_tokens=MAX_NEW)[1]
+    del ref
+
+    # 1. Hugging Face safetensors, full width
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_ckpt_hf_"))
+    try:
+        t0 = time.perf_counter()
+        shards = cw.save_hf(params, cfg, ids, tmp, norm_stats=stats,
+                            dtype=torch.bfloat16)
+        export_s = time.perf_counter() - t0
+        sizes = [p.stat().st_size for p in shards]
+        if len(shards) < 2 or not (tmp / "model.safetensors.index.json"
+                                   ).exists() or max(sizes) > 5.01e9:
+            raise AssertionError(f"HF export: shards {sizes}, no index?")
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            vla = load_vla(tmp, device="cuda")
+            torch.cuda.synchronize(dev)
+            load_s = time.perf_counter() - t0
+        heap_gb = no_host_copy(host, leaf_bytes, "HF bf16 load")
+        bad = _differing_leaves(vla.engine.model.tree(), params)
+        if bad:
+            raise AssertionError(f"HF bf16 load: leaves differ: {bad[:8]}")
+        if vla.get_action_stats(None) != stats["bridge_orig"]["action"]:
+            raise AssertionError("HF load: action statistics differ from "
+                                 "the written ones")
+        got_ids = greedy_ids(vla, frame, prompt)
+        if got_ids != ref_ids:
+            raise AssertionError(f"HF bf16 load: tokens {got_ids} != "
+                                 f"in-memory {ref_ids}")
+        req = served_request(vla, frame, prompt, kernels, quantized=False)
+        if req["text"] != ref_text:
+            raise AssertionError("HF bf16 load: generate_actions text "
+                                 "differs from the in-memory model's")
+        out["hf_bf16"] = {"shards": len(shards), "shard_gb": [
+            s / 1e9 for s in sizes], "export_s": export_s, "load_s": load_s,
+            **host.gb(), "heap_growth_gb": heap_gb,
+            "largest_bf16_leaf_gb": leaf_bytes / 1e9, "request": {k: v for k, v in req.items()
+                                     if k != "text"}}
+        log("checkpoint hf bf16 " + json.dumps(out["hf_bf16"]))
+        del vla
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # int4: the loader quantizes each stacked leaf on the host
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            vla4 = load_vla(tmp, device="cuda", quantize="int4")
+            torch.cuda.synchronize(dev)
+            load4_s = time.perf_counter() - t0
+        device_peak = torch.cuda.max_memory_allocated(dev) - before
+        tree4 = vla4.engine.model.tree()
+        bound = _tree_bytes(tree4) + leaf_bytes
+        if not device_peak < bound:
+            raise AssertionError(f"int4 load: device peak {device_peak} B "
+                                 f">= int4 tree + one bf16 leaf {bound} B")
+        t0 = time.perf_counter()
+        want4 = place_params(_tree_to(params, "cpu"), dev, "int4")
+        ref_quant_s = time.perf_counter() - t0
+        bad = _differing_leaves(tree4, want4)
+        if bad:
+            raise AssertionError(f"HF int4 load: leaves differ from the "
+                                 f"host route on the in-memory params: "
+                                 f"{bad[:8]}")
+        # the same quantizer on the card (phase 5's route), for the record
+        card4 = quantize_vlm_params(params, bits=4)
+        card_diff = {"codes": 0, "scales": 0}
+        for k in (*QUANT_KEYS, None):
+            a = card4["llm"]["layers"][k] if k else card4["llm"]["lm_head"]
+            b = want4["llm"]["layers"][k] if k else want4["llm"]["lm_head"]
+            card_diff["codes"] += int((a["q4"] != b["q4"]).sum())
+            card_diff["scales"] += int(
+                (a["scale"].view(torch.int16)
+                 != b["scale"].view(torch.int16)).sum())
+        del card4
+        ref4 = in_memory(want4)
+        ref4_ids = greedy_ids(ref4, frame, prompt)
+        del ref4
+        got4_ids = greedy_ids(vla4, frame, prompt)
+        if got4_ids != ref4_ids:
+            raise AssertionError(f"HF int4 load: tokens {got4_ids} != "
+                                 f"in-memory host-quantized {ref4_ids}")
+        req = served_request(vla4, frame, prompt, kernels, quantized=True)
+        out["hf_int4"] = {
+            "load_s": load4_s, **host.gb(),
+            "device_peak_gb": device_peak / 1e9,
+            "device_bound_gb": bound / 1e9,
+            "int4_tree_gb": _tree_bytes(tree4) / 1e9,
+            "largest_bf16_leaf_gb": leaf_bytes / 1e9,
+            "reference_quantize_s": ref_quant_s,
+            "card_vs_host_quantizer_differing": card_diff,
+            "same_tokens_as_bf16": got4_ids == ref_ids,
+            "request": {k: v for k, v in req.items() if k != "text"}}
+        log("checkpoint hf int4 " + json.dumps(out["hf_int4"]))
+        del vla4, tree4, want4
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 2. reference .pt, full width
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_ckpt_pt_"))
+    try:
+        t0 = time.perf_counter()
+        cw.save_reference_pt(params, cfg,
+                             tmp / "checkpoints" / "latest-checkpoint.pt")
+        (tmp / "config.json").write_text(json.dumps({"model": ids}))
+        export_s = time.perf_counter() - t0
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            vla = load_vla(tmp, device="cuda")
+            torch.cuda.synchronize(dev)
+            load_s = time.perf_counter() - t0
+        heap_gb = no_host_copy(host, leaf_bytes, ".pt bf16 load")
+        bad = _differing_leaves(vla.engine.model.tree(), params)
+        if bad:
+            raise AssertionError(f".pt load: leaves differ: {bad[:8]}")
+        out["pt_bf16"] = {
+            "decoder_layers": cfg.llm.n_layers, "export_s": export_s,
+            "file_gb": sum(p.stat().st_size for p in
+                           (tmp / "checkpoints").iterdir()) / 1e9,
+            "load_s": load_s, **host.gb(), "heap_growth_gb": heap_gb}
+        log("checkpoint pt bf16 " + json.dumps(out["pt_bf16"]))
+        del vla
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the port's own run dir (the trainer's --smoke_test, on the card)
+    from emmax_torch.conf import VLAConfig, parse_config
+    from emmax_torch.train import TrainConfig
+    from emmax_torch.train import main as train_main
+
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_ckpt_run_"))
+    try:
+        t0 = time.perf_counter()
+        train_main(parse_config(TrainConfig, [
+            "--smoke_test", "true", "--device", dev.type,
+            "--vla.max_steps", "2",
+            "--vla.global_batch_size", "2", "--eval_interval", "100",
+            "--run_root_dir", str(tmp)], choice_fields={"vla": VLAConfig}))
+        train_s = time.perf_counter() - t0
+        run = next(tmp.iterdir())
+        small = np.random.default_rng(5).integers(0, 256, (64, 64, 3),
+                                                  dtype=np.uint8)
+        toks = []
+        for device in (dev, "cpu"):
+            tv = load_vla(run, dtype=torch.float32, device=device)
+            toks.append(greedy_ids(tv, small, tv.get_prompt(
+                TASK, gripper_position=(10, 20)), 24))
+        if toks[0] != toks[1]:
+            raise AssertionError(f"run dir: card tokens {toks[0]} != CPU "
+                                 f"tokens {toks[1]}")
+        out["run_dir"] = {"train_s": train_s, "tokens": len(toks[0]),
+                          "checkpoint": next((run / "checkpoints")
+                                             .iterdir()).name}
+        log("checkpoint run dir " + json.dumps(out["run_dir"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 4. --pretrained_checkpoint at the vla-train cut
+    out["pretrained"] = pretrained_checkpoint_step(dev)
+    log("checkpoint pretrained " + json.dumps(out["pretrained"]))
+    return out
+
+
+def pretrained_checkpoint_step(dev) -> dict:
+    """vla-train's params (the ``VLA_LAYERS`` cut, seed 1) written as a
+    reference ``.pt`` and converted by the trainer's own code
+    (``train.initial_params``): every leaf, step 0's loss and the
+    projector's gradient equal those of the params in memory."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from emmax_torch.convert_weights import save_reference_pt
+    from emmax_torch.data.collators import BatchLoader, collate_train
+    from emmax_torch.data.gcot import (GCOTDataset, SyntheticFrameSource,
+                                       make_dummy_gcot_items)
+    from emmax_torch.data.prefetch import to_device
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.tree import leaves_with_path
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.train import TrainConfig, initial_params
+    from emmax_torch.training.train_state import (stage_from_flags,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import make_grad_fn
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    base = emma_x_vlm_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, n_layers=VLA_LAYERS))
+    tokenizer = load_tokenizer(None)
+    dataset = GCOTDataset(make_dummy_gcot_items(VLA_B),
+                          ActionTokenizer(tokenizer), tokenizer,
+                          SyntheticFrameSource(256),
+                          data_mix="movement_policy", mask_inst=True)
+    batch = to_device(next(iter(BatchLoader(dataset, VLA_B, lambda s:
+                                            collate_train(
+        s, tokenizer.pad_id, max_length=cfg.llm.max_seq_len),
+        seed=7).epoch(0))), dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    params = init_vlm_params(gen, cfg, torch.float32, dev)
+    grad_fn = make_grad_fn(
+        cfg, attn_impl="cuda", remat=True, compute_dtype=torch.bfloat16,
+        transforms=get_image_transforms("dinosiglip-vit-so-224px",
+                                        "resize-naive"),
+        stop_vision_gradient=True,
+        freeze_mask=trainable_mask(params, stage_from_flags(True, False,
+                                                            False)),
+        action_vocab_size=tokenizer.vocab_size)
+
+    def step0(p):
+        loss, _, grads = grad_fn(p, batch)
+        proj = [g.clone() for path, g in leaves_with_path(grads)
+                if path.startswith("projector/")]
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss.item(), proj
+
+    loss_mem, proj_mem = step0(params)
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_ckpt_pretrained_"))
+    try:
+        pt = tmp / "base.pt"
+        t0 = time.perf_counter()
+        save_reference_pt(params, cfg, pt)
+        export_s = time.perf_counter() - t0
+        file_gb = pt.stat().st_size / 1e9
+        t0 = time.perf_counter()
+        conv = initial_params(TrainConfig(pretrained_checkpoint=pt,
+                                          device="cuda"), cfg, dev)
+        torch.cuda.synchronize(dev)
+        convert_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = _differing_leaves(conv, params)
+    if bad:
+        raise AssertionError(f"--pretrained_checkpoint: leaves differ: "
+                             f"{bad[:8]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_conv, proj_conv = step0(conv)
+    same = loss_conv == loss_mem and all(
+        torch.equal(a, b) for a, b in zip(proj_conv, proj_mem))
+    if not same:
+        loss_again, proj_again = step0(conv)
+        raise AssertionError(
+            f"--pretrained_checkpoint step 0: loss {loss_conv} vs "
+            f"{loss_mem} in memory, projector gradients equal: "
+            f"{[torch.equal(a, b) for a, b in zip(proj_conv, proj_mem)]}; "
+            f"a rerun on the same params gives loss {loss_again}, "
+            f"equal gradients "
+            f"{[torch.equal(a, b) for a, b in zip(proj_again, proj_conv)]}")
+    del conv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"decoder_layers": VLA_LAYERS, "batch": VLA_B,
+            "export_s": export_s, "file_gb": file_gb,
+            "convert_s": convert_s, "loss": loss_mem,
+            "projector_grad_max": max(g.abs().max().item()
+                                      for g in proj_mem),
+            "equal": True}
 
 
 # --------------------------------------------------------- batched serving --
@@ -2296,6 +2776,9 @@ def main(argv) -> int:
     for name in ("flash_fwd", "int4_matmul"):
         if q4["launches"][name] == 0:
             raise AssertionError(f"int4 path launched no {name} kernel")
+    log_phase("checkpoint_phase")
+    ckpt = checkpoint_phase(dev, kernels)
+    log("checkpoint " + json.dumps(ckpt))
     log_phase("batched_phase")
     batched = batched_phase(dev, serving_kernels)
     log("batched serving " + json.dumps({"tiny_steps": tiny_steps,
@@ -2363,7 +2846,9 @@ def main(argv) -> int:
                   episode["launches_by"]["flash_fwd"],
                   "frames": SPEC_FRAMES},
               towers_fp32={**towers, "launches_vla_full_train_fp32_step":
-                           full_step["flash_fwd"]["float32"]}),
+                           full_step["flash_fwd"]["float32"]},
+              launches_checkpoint_request_by_dtype=ckpt["hf_int4"][
+                  "request"]["flash_fwd_by_dtype"]),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
               launches_path="align7b train step",
@@ -2399,6 +2884,8 @@ def main(argv) -> int:
               q4["launches"]["int4_matmul"],
               launches_path="int4 serving requests",
               launches_closed_loop_episode=episode["launches"]["int4_matmul"],
+              launches_checkpoint_int4_request=ckpt["hf_int4"]["request"][
+                  "launches"]["int4_matmul"],
               resources=int4_res,
               shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms",
                                          "library_ms", "bound_ms",

@@ -1,8 +1,9 @@
-"""Configuration: the VLA experiment table and CLI parsing."""
+"""Configuration: the VLM and VLA tables and CLI parsing."""
 
+from emmax_torch.conf.models import ModelConfig
 from emmax_torch.conf.registry import (ChoiceRegistry, config_to_dict,
                                        parse_config)
 from emmax_torch.conf.vla import EMMA_X_FLAGSHIP_ID, VLAConfig
 
-__all__ = ["ChoiceRegistry", "VLAConfig", "EMMA_X_FLAGSHIP_ID",
+__all__ = ["ChoiceRegistry", "ModelConfig", "VLAConfig", "EMMA_X_FLAGSHIP_ID",
            "parse_config", "config_to_dict"]

@@ -23,15 +23,16 @@ LLM_BACKBONES: Dict[str, Tuple[LlamaConfig, str]] = {
 
 def get_vision_config(vision_backbone_id: str):
     if vision_backbone_id not in VISION_BACKBONES:
-        raise KeyError(f"unknown vision backbone {vision_backbone_id!r}; "
-                       f"known: {sorted(VISION_BACKBONES)}")
+        raise KeyError(f"vision backbone {vision_backbone_id!r} is not built "
+                       f"by emmax_torch yet; it builds "
+                       f"{sorted(VISION_BACKBONES)}")
     return VISION_BACKBONES[vision_backbone_id]
 
 
 def get_llm_config(llm_backbone_id: str) -> Tuple[LlamaConfig, str]:
     if llm_backbone_id not in LLM_BACKBONES:
-        raise KeyError(f"unknown llm backbone {llm_backbone_id!r}; "
-                       f"known: {sorted(LLM_BACKBONES)}")
+        raise KeyError(f"llm backbone {llm_backbone_id!r} is not built by "
+                       f"emmax_torch yet; it builds {sorted(LLM_BACKBONES)}")
     return LLM_BACKBONES[llm_backbone_id]
 
 

@@ -112,33 +112,37 @@ def _quantize_2d(w: torch.Tensor, group: int, search: bool):
     The candidate errors are summed over the group rows one row at a time:
     numpy reduces a non-innermost axis in that order, and any other order
     (torch's cascade sum, a GPU tree reduction) can flip near-tied
-    candidates and change the bytes.
+    candidates and change the bytes. Each candidate's error is built in
+    place in one weight-sized buffer (no stack of ten fresh tensors: the
+    host quantizer of ``models.load`` runs this on 7B trees).
     """
     D, F = w.shape
     G = D // group
-    grouped = w.float().reshape(G, group, F)
-    absmax = grouped.abs().amax(dim=1, keepdim=True)            # [G, 1, F]
-    base = (absmax / 7.5).to(torch.bfloat16).float()
+    x = w.float().reshape(G, group, F)
+    t = torch.empty_like(x)
 
     def levels(s):
+        """clamp(floor(x / s + 8), 0, 15) - 8, into ``t``."""
         safe = torch.where(s == 0, torch.ones_like(s), s)
-        return torch.clamp(torch.floor(grouped / safe + 8), 0, 15) - 8
+        torch.div(x, safe, out=t)
+        return t.add_(8).floor_().clamp_(0, 15).sub_(8)
 
-    scale = base
+    scale = (x.abs().amax(dim=1, keepdim=True) / 7.5).to(
+        torch.bfloat16).float()                                  # [G, 1, F]
     if search:
-        cands = [(base * float(np.float32(c))).to(torch.bfloat16).float()
-                 for c in SEARCH_FRACS]
-        err = torch.stack([((levels(s) + 0.5) * s - grouped) ** 2
-                           for s in cands])                     # [C, G, g, F]
-        mse = err[:, :, 0]
-        for r in range(1, group):
-            mse = mse + err[:, :, r]
-        del err
-        best, scale = mse[0], cands[0]
-        for i in range(1, len(cands)):
-            better = (mse[i] < best)[:, None]
-            scale = torch.where(better, cands[i], scale)
-            best = torch.minimum(mse[i], best)
+        base, best = scale, None
+        for c in SEARCH_FRACS:
+            s = (base * float(np.float32(c))).to(torch.bfloat16).float()
+            err = levels(s).add_(0.5).mul_(s).sub_(x).square_()
+            mse = err[:, 0].clone()
+            for r in range(1, group):
+                mse.add_(err[:, r])
+            if best is None:
+                best, scale = mse, s
+            else:
+                better = (mse < best)[:, None]
+                scale = torch.where(better, s, scale)
+                best = torch.minimum(mse, best)
     q = levels(scale).to(torch.int32).reshape(D, F)
     lo, hi = q[: D // 2], q[D // 2:]
     packed = ((hi << 4) | (lo + 8)).to(torch.int8)

@@ -29,18 +29,21 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q8": q, "scale": scale}
 
 
+def weight_quantizer(bits: int, group: int = DEFAULT_GROUP) -> Callable:
+    """The quantizer of one weight: int8 per-channel or int4 group-wise."""
+    if bits == 8:
+        return quantize_weight
+    if bits == 4:
+        return lambda w: quantize_weight_int4(w, group=group)
+    raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+
 def quantize_vlm_params(params: Dict[str, Any], bits: int = 8,
                         group: int = DEFAULT_GROUP) -> Dict[str, Any]:
     """The VLM tree with its decoder's matmul weights and lm_head quantized
     (``bits`` 8 or 4; ``group`` applies to int4). A new tree is returned;
     the input's dense leaves are freed once the caller drops it."""
-    if bits == 8:
-        qfn: Callable = quantize_weight
-    elif bits == 4:
-        def qfn(w):
-            return quantize_weight_int4(w, group=group)
-    else:
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    qfn = weight_quantizer(bits, group)
     llm = dict(params["llm"])
     layers = dict(llm["layers"])
     for key in QUANT_KEYS:

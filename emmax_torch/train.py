@@ -7,7 +7,9 @@ checkpoints named ``step-XXXXXX-epoch-XX-loss=X.XXXX``) and training
 semantics (GCOT dataset with its data mix, instruction masking, Solver
 eval every ``eval_interval`` steps, checkpoints every ``save_interval``).
 It runs on the card unless ``--device cpu`` is given, and raises without
-one. Weights are random from ``--seed`` (checkpoint import is not ported).
+one. Weights are random from ``--seed``, or, with
+``--pretrained_checkpoint``, a reference Prismatic ``.pt`` converted into
+fp32 masters (when not resuming).
 
     python -m emmax_torch.train \\
         --vla.type prism-dinosiglip-224px+mx-moveonly-moveguided-single-policy \\
@@ -40,7 +42,7 @@ class TrainConfig:
     rlds_data_dir: Optional[Path] = None               # not ported yet
     frames_dir: Optional[Path] = None                  # pre-extracted frames
 
-    pretrained_checkpoint: Optional[Path] = None       # not ported yet
+    pretrained_checkpoint: Optional[Path] = None       # reference .pt
     is_resume: bool = False
     auto_resume: bool = True                           # pick up run-dir ckpts
     resume_step: Optional[int] = None
@@ -59,6 +61,26 @@ class TrainConfig:
     device: str = "cuda"
 
 
+def initial_params(cfg: TrainConfig, vlm_cfg, device):
+    """The fp32 master params a run starts from: the reference ``.pt`` at
+    ``--pretrained_checkpoint`` converted with the stage's VLM config
+    (unless resuming, which restores its own), else random from
+    ``--seed``."""
+    import torch
+
+    if cfg.pretrained_checkpoint is not None and not cfg.is_resume:
+        from emmax_torch.models.load import convert_prismatic_pt
+
+        log.info("starting from %s", cfg.pretrained_checkpoint)
+        return convert_prismatic_pt(cfg.pretrained_checkpoint, vlm_cfg,
+                                    torch.float32, device)
+    from emmax_torch.models.vlm import init_vlm_params
+
+    generator = torch.Generator(device)
+    generator.manual_seed(cfg.seed)
+    return init_vlm_params(generator, vlm_cfg, torch.float32, device)
+
+
 def main(cfg: TrainConfig):
     import torch
 
@@ -70,7 +92,7 @@ def main(cfg: TrainConfig):
     from emmax_torch.models.load import build_vlm
     from emmax_torch.models.materialize import get_image_transforms
     from emmax_torch.models.registry import MODEL_REGISTRY
-    from emmax_torch.models.vlm import init_vlm_params, tiny_vlm_config
+    from emmax_torch.models.vlm import tiny_vlm_config
     from emmax_torch.ops.image import ImageTransformConfig
     from emmax_torch.serving.engine import resolve_device
     from emmax_torch.training.checkpointing import (CheckpointManager,
@@ -89,9 +111,6 @@ def main(cfg: TrainConfig):
     from emmax_torch.vla.tokenizer import ByteLevelTokenizer, load_tokenizer
 
     device = resolve_device(cfg.device)
-    if cfg.pretrained_checkpoint is not None:
-        raise ValueError("--pretrained_checkpoint: checkpoint import "
-                         "(models/convert.py) is not ported yet")
     vla = cfg.vla
     run_id = f"{vla.vla_id}+n1+b{vla.global_batch_size}+x{cfg.seed}"
     if cfg.run_id_note:
@@ -147,9 +166,7 @@ def main(cfg: TrainConfig):
         seed=cfg.seed)
 
     # --- params + optimizer ---
-    generator = torch.Generator(device)
-    generator.manual_seed(cfg.seed)
-    params = init_vlm_params(generator, vlm_cfg, torch.float32, device)
+    params = initial_params(cfg, vlm_cfg, device)
     stage = stage_from_flags(vla.freeze_vision_backbone,
                              vla.freeze_llm_backbone,
                              vla.unfreeze_last_llm_layer)
@@ -176,8 +193,16 @@ def main(cfg: TrainConfig):
             raise ValueError(f"resume_step={cfg.resume_step} != checkpoint "
                              f"step {start_step}")
 
-    write_sidecars(run_dir, {"vla": config_to_dict(vla), "run_id": run_id,
-                             "seed": cfg.seed}, dataset_statistics)
+    blob = {"vla": config_to_dict(vla), "run_id": run_id, "seed": cfg.seed}
+    if cfg.smoke_test:
+        # the tiny model, not vla.base_vlm, is what the checkpoints hold:
+        # say so where models.load reads it first
+        blob["model"] = {"vision_backbone_id": "tiny",
+                         "llm_backbone_id": "tiny",
+                         "arch_specifier": vlm_cfg.arch_specifier,
+                         "image_resize_strategy": "resize-naive"}
+        blob["text_config"] = {"vocab_size": vlm_cfg.llm.vocab_size}
+    write_sidecars(run_dir, blob, dataset_statistics)
 
     # --- train ---
     compute_dtype = (torch.bfloat16 if vla.enable_mixed_precision_training

@@ -5,7 +5,9 @@ Orbax is JAX-only: a checkpoint here is a directory holding ``state.pt``,
 the ``torch.save`` of the step, the parameter tree and the optimizer
 state, written synchronously. Directory names and sidecars are the JAX
 package's (and the reference's): ``checkpoints/step-XXXXXX-epoch-XX-
-loss=X.XXXX`` beside ``config.json`` and ``dataset_statistics.json``.
+loss=X.XXXX`` beside ``config.json`` and ``dataset_statistics.json``. An
+imported checkpoint (``models.load.save_pretrained``) is named
+``step-XXXXXX`` and holds the parameters alone.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from emmax_torch.training.train_state import TrainState
 
 log = logging.getLogger(__name__)
 
-# a diverged run may print its loss as nan/inf; the name must still parse
-_CKPT_RE = re.compile(r"step-(\d+)-epoch-(\d+)-loss=([0-9.]+|nan|inf)$")
+# a diverged run may print its loss as nan/inf; the name must still parse.
+# An imported checkpoint has no epoch or loss.
+_CKPT_RE = re.compile(
+    r"step-(\d+)(?:-epoch-(\d+)-loss=([0-9.]+|nan|inf))?$")
 STATE_FILE = "state.pt"
 
 
@@ -90,7 +94,8 @@ class CheckpointManager:
         m = _CKPT_RE.match(Path(path).name)
         if not m:
             raise ValueError(f"not a checkpoint dir name: {path}")
-        return int(m.group(1)), int(m.group(2)), float(m.group(3))
+        return (int(m.group(1)), int(m.group(2) or 0),
+                float(m.group(3) or "nan"))
 
 
 def write_sidecars(run_dir, config_blob: dict,

@@ -690,3 +690,62 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _tiny_checkpoint_dir(root, fmt):
+    """A tiny checkpoint dir in the reference ``.pt`` layout or the OpenVLA
+    Hugging Face layout, written by the port's exporters."""
+    import json
+
+    from emmax_torch.convert_weights import save_hf, save_reference_pt
+    from emmax_torch.models.load import load
+
+    cfg, params, _, _, _ = load("tiny", dtype=torch.float32, device="cpu",
+                                seed=4)
+    ids = {"vision_backbone_id": "tiny", "llm_backbone_id": "tiny",
+           "arch_specifier": "no-align+fused-gelu-mlp",
+           "image_resize_strategy": "resize-naive"}
+    d = root / fmt
+    if fmt == "pt":
+        save_reference_pt(params, cfg, d / "checkpoints" / "latest.pt")
+        (d / "config.json").write_text(json.dumps({"model": ids}))
+    else:
+        save_hf(params, cfg, ids, d, dtype=torch.float32)
+    return d
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+@pytest.mark.parametrize("fmt", ["pt", "hf"])
+def test_checkpoint_dir_on_card_gives_the_cpu_tokens(dev, fmt, quantize,
+                                                     tmp_path):
+    """``load_vla(dir)`` onto the card (fp32, through the kernels) gives
+    the greedy tokens of the same dir loaded on the CPU."""
+    from emmax_torch.models.load import load_vla
+
+    d = _tiny_checkpoint_dir(tmp_path, fmt)
+    frame = np.random.default_rng(5).integers(0, 256, (64, 64, 3),
+                                              dtype=np.uint8)
+    out = []
+    for device in ("cpu", dev):
+        vla = load_vla(d, dtype=torch.float32, quantize=quantize,
+                       device=device)
+        prompt = vla.get_prompt("pick the cup", gripper_position=(10, 20))
+        out.append(vla.engine.generate_ids([prompt], vla._pixels(frame),
+                                           max_new_tokens=16).tolist())
+    assert out[0] == out[1]
+
+
+def test_safetensors_reader_onto_the_card(dev, tmp_path):
+    from emmax_torch.models.safetensors_io import (load_dir, load_file,
+                                                   save_dir)
+
+    sd = {"bf16": torch.randn(33, 7).to(torch.bfloat16),
+          "f32": torch.randn(5), "i8": torch.arange(-5, 5, dtype=torch.int8),
+          "bool": torch.tensor([True, False, True])}
+    save_dir(sd, tmp_path, max_shard_bytes=64)
+    for got in (load_dir(tmp_path, device=dev),
+                load_file(sorted(tmp_path.glob("*.safetensors"))[0],
+                          device=dev)):
+        for k, v in got.items():
+            assert v.device.type == "cuda"
+            assert torch.equal(v.cpu(), sd[k]), k

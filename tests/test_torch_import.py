@@ -41,7 +41,11 @@ def test_import_loads_no_jax():
             "emmax_torch.conf.vla", "emmax_torch.conf.registry",
             "emmax_torch.serving.continuous", "emmax_torch.serving.paged",
             "emmax_torch.ops.paged_attention",
-            "emmax_torch.serving.speculative"} <= set(MODULES)
+            "emmax_torch.serving.speculative",
+            "emmax_torch.models.safetensors_io", "emmax_torch.models.convert",
+            "emmax_torch.conf.models", "emmax_torch.extern.hf_facade",
+            "emmax_torch.convert_weights", "emmax_torch.generate",
+            "emmax_torch.data.pretrain"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
