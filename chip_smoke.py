@@ -54,14 +54,15 @@ Phases, each raising on failure (the script then exits non-zero):
    a temporary directory and served back through ``load_vla(dir)``: in
    bf16 every leaf equal to the params in memory, the in-memory model's
    greedy tokens and text, the written statistics; with
-   ``quantize="int4"`` (the loader quantizes each stacked leaf on the
-   host) the tree equal to the same host route applied to the params in
-   memory, that model's tokens, the launch gates of a request (fp32 flash
+   ``quantize="int4"`` (the loader converts the tree on the host and
+   quantizes each stacked leaf on the card, one layer moved at a time)
+   the tree equal to the params in memory quantized on the card (phase
+   5's route; the codes and scales that differ are printed), that model's
+   tokens, the launch gates of a request (fp32 flash
    forward depth - 1 per tower, the bf16 one once per decoder layer, int4
-   on all 7 weights of every layer and the lm_head in every forward), the
-   load's device peak under the int4 tree plus one bf16 stacked leaf, and
-   the codes and scales in which the card's quantizer (phase 5's route)
-   differs, printed; then a reference ``.pt`` loaded back bit for bit; a
+   on all 7 weights of every layer and the lm_head in every forward), and
+   the load's device peak under the int4 tree plus one bf16 stacked leaf;
+   then a reference ``.pt`` loaded back bit for bit; a
    run dir of the trainer's ``--smoke_test`` on the card giving the same
    tokens on the card and the CPU; and ``--pretrained_checkpoint`` at the
    vla-train cut (``VLA_LAYERS``): the trainer's conversion of a ``.pt``
@@ -151,7 +152,24 @@ Phases, each raising on failure (the script then exits non-zero):
    ms, the bf16 fence's verdict, and the same tokens or, at the first
    difference, a printed near-tie (``free_run``).
 
-Phases 4b, 5b, 10b, 7, 11 and 12 run after phase 10 (4b with phase 4,
+13. ``multigpu``: the multi-GPU path (``emmax_torch.parallel``) at world
+   size 1: a NCCL process group of one rank joined in-process
+   (``initialize_distributed``, 127.0.0.1 and a free port) and the (1, 1,
+   1) mesh on "cuda". The full 7B align step through
+   ``make_train_step(..., mesh=mesh)`` on ``shard_params`` of the params
+   (no leaf copied) against the unwrapped step from the same state: loss,
+   grad norm, projector gradient and update within ``MESH_RTOL`` (0
+   expected), the same launches (113 / 32 / 32, all bf16), the wrapped
+   step's device peak minus the unwrapped one's, step ms in turns;
+   vla-train's 8-layer cut for ``MESH_VLA_STEPS`` steps through
+   ``run_discrete_vla_training(mesh=)`` against the unwrapped run's
+   losses, with the mesh's checkpoint save (rank 0 writes the gathered
+   tree) and restore (every rank's blocks) held equal to the live state;
+   one 64-token request of ``ServingEngine`` on the sharded bf16 tree with
+   the unsharded engine's tokens and launches (49 fp32 + 32 bf16 flash
+   forwards). The group is destroyed at the end.
+
+Phases 4b, 5b, 10b, 7, 11, 12 and 13 run after phase 10 (4b with phase 4,
 5b with phase 5); ``--kernels-only`` skips them. The line before the last is the
 card's name and power limit; the one before it a JSON object with one
 entry per kernel; the last line is
@@ -221,6 +239,10 @@ SPEC_KW = dict(draft_k=12, prefix_tail=TAIL, quantized_cache=True,
 SPEC_W_LINEAR, SPEC_W_TREE = 13, 43   # verifier widths: 12 + 1, 1 + 7 + 35
 SPEC_PROFILE_FRAME = 2
 FREE_FRAMES = 3                # the free runs' closed-loop frames
+# multigpu: wrapped against unwrapped at world size 1, relative (the same
+# kernels on the same tensors: 0 expected); vla-train steps through the mesh
+MESH_RTOL = 1e-6
+MESH_VLA_STEPS = 2
 
 
 T0 = time.perf_counter()
@@ -1244,9 +1266,9 @@ def checkpoint_phase(dev, kernels) -> dict:
        in-memory model's greedy tokens, the written stats, the host heap
        grown by less than one bf16 stacked leaf: the leaves go straight
        from the mapped shards to the card) and with
-       ``quantize="int4"`` (the tree equal to the loader's route applied to
-       the in-memory params: quantized on the host, leaf by leaf; the
-       in-memory model's tokens under that tree; the launch gates; the
+       ``quantize="int4"`` (the tree equal to the in-memory params
+       quantized on the card by ``quantize_vlm_params``; the in-memory
+       model's tokens under that tree; the launch gates; the
        device peak of the load under the int4 tree plus one bf16 stacked
        leaf);
     2. a reference ``.pt`` (``save_reference_pt``) -> ``load_vla(dir)``:
@@ -1265,7 +1287,7 @@ def checkpoint_phase(dev, kernels) -> dict:
     from pathlib import Path
 
     from emmax_torch import convert_weights as cw
-    from emmax_torch.models.load import load, load_vla, place_params
+    from emmax_torch.models.load import load, load_vla
     from emmax_torch.models.vla import EmmaXVLA
     from emmax_torch.serving.quant import QUANT_KEYS, quantize_vlm_params
 
@@ -1333,7 +1355,8 @@ def checkpoint_phase(dev, kernels) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # int4: the loader quantizes each stacked leaf on the host
+        # int4: the loader quantizes each stacked leaf on the card, one
+        # layer moved from the host tree at a time
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         with HostPeak() as host:
@@ -1347,32 +1370,32 @@ def checkpoint_phase(dev, kernels) -> dict:
         if not device_peak < bound:
             raise AssertionError(f"int4 load: device peak {device_peak} B "
                                  f">= int4 tree + one bf16 leaf {bound} B")
+        # the reference: the params in memory quantized on the card, whole
+        # leaves at a time (phase 5's route)
         t0 = time.perf_counter()
-        want4 = place_params(_tree_to(params, "cpu"), dev, "int4")
+        want4 = quantize_vlm_params(params, bits=4)
+        torch.cuda.synchronize(dev)
         ref_quant_s = time.perf_counter() - t0
+        diff = {"codes": 0, "scales": 0}
+        for k in (*QUANT_KEYS, None):
+            a = want4["llm"]["layers"][k] if k else want4["llm"]["lm_head"]
+            b = tree4["llm"]["layers"][k] if k else tree4["llm"]["lm_head"]
+            diff["codes"] += int((a["q4"] != b["q4"]).sum())
+            diff["scales"] += int(
+                (a["scale"].view(torch.int16)
+                 != b["scale"].view(torch.int16)).sum())
         bad = _differing_leaves(tree4, want4)
         if bad:
             raise AssertionError(f"HF int4 load: leaves differ from the "
-                                 f"host route on the in-memory params: "
-                                 f"{bad[:8]}")
-        # the same quantizer on the card (phase 5's route), for the record
-        card4 = quantize_vlm_params(params, bits=4)
-        card_diff = {"codes": 0, "scales": 0}
-        for k in (*QUANT_KEYS, None):
-            a = card4["llm"]["layers"][k] if k else card4["llm"]["lm_head"]
-            b = want4["llm"]["layers"][k] if k else want4["llm"]["lm_head"]
-            card_diff["codes"] += int((a["q4"] != b["q4"]).sum())
-            card_diff["scales"] += int(
-                (a["scale"].view(torch.int16)
-                 != b["scale"].view(torch.int16)).sum())
-        del card4
+                                 f"in-memory params quantized on the card "
+                                 f"({diff}): {bad[:8]}")
         ref4 = in_memory(want4)
         ref4_ids = greedy_ids(ref4, frame, prompt)
         del ref4
         got4_ids = greedy_ids(vla4, frame, prompt)
         if got4_ids != ref4_ids:
             raise AssertionError(f"HF int4 load: tokens {got4_ids} != "
-                                 f"in-memory host-quantized {ref4_ids}")
+                                 f"in-memory card-quantized {ref4_ids}")
         req = served_request(vla4, frame, prompt, kernels, quantized=True)
         out["hf_int4"] = {
             "load_s": load4_s, **host.gb(),
@@ -1381,7 +1404,7 @@ def checkpoint_phase(dev, kernels) -> dict:
             "int4_tree_gb": _tree_bytes(tree4) / 1e9,
             "largest_bf16_leaf_gb": leaf_bytes / 1e9,
             "reference_quantize_s": ref_quant_s,
-            "card_vs_host_quantizer_differing": card_diff,
+            "differing_from_reference": diff,
             "same_tokens_as_bf16": got4_ids == ref_ids,
             "request": {k: v for k, v in req.items() if k != "text"}}
         log("checkpoint hf int4 " + json.dumps(out["hf_int4"]))
@@ -2708,6 +2731,345 @@ def vla_full_train_fp32_phase(dev, kernels):
     return out
 
 
+def _mesh_gate(what: str, got: float, want: float) -> float:
+    """The relative distance of a wrapped value from the unwrapped one,
+    held at MESH_RTOL (the same kernels on the same tensors: 0 expected)."""
+    err = abs(got - want) / max(abs(want), 1e-30)
+    if not (np.isfinite(got) and err <= MESH_RTOL):
+        raise AssertionError(f"multigpu {what}: {got} against unwrapped "
+                             f"{want} (rel {err})")
+    return err
+
+
+def _counted(kernels, run):
+    """``run()`` with every kernel's counts set to 0 just before and read
+    just after: (result, launches, launches by dtype)."""
+    for k in kernels:
+        k.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, {k.name: k.launches for k in kernels},
+            {k.name: dict(k.launches_by) for k in kernels})
+
+
+def _mesh_align7b(dev, kernels, mesh) -> dict:
+    """The full 7B align step through ``make_train_step(..., mesh=mesh)`` on
+    ``shard_params`` of the params, against the unwrapped step from the
+    same state: loss, grad norm, projector gradient and updated projector,
+    launches per step, the wrapped step's device peak minus the unwrapped
+    one's, step times in turns."""
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import (make_grad_fn,
+                                                  make_train_step)
+
+    cfg = emma_x_vlm_config()
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    params = init_vlm_params(gen, cfg, torch.float32, dev)
+    sharded = shard_params(params, mesh)
+    # gather-at-use at size 1: every block is the leaf itself
+    if not all(a.data_ptr() == b.data_ptr() for a, b in
+               zip(_leaves(params), _leaves(sharded))):
+        raise AssertionError("multigpu: shard_params copied a leaf at "
+                             "world size 1")
+    tx, _ = make_optimizer(params, learning_rate=2e-5, weight_decay=0.01,
+                           max_grad_norm=1.0, lr_scheduler_type="constant",
+                           total_steps=100, stage="align")
+    batch = align_batch(dev, 32000)
+    common = dict(attn_impl="cuda", remat=True, stop_vision_gradient=True,
+                  compute_dtype=torch.bfloat16,
+                  transforms=get_image_transforms("dinosiglip-vit-so-224px",
+                                                  "resize-naive"),
+                  freeze_mask=trainable_mask(params, "align"),
+                  action_vocab_size=32000)
+    grads = {}
+    for key, tree, m in (("unwrapped", params, None),
+                         ("mesh", sharded, mesh)):
+        loss, _, g = make_grad_fn(cfg, mesh=m, **common)(tree, batch)
+        grads[key] = (loss.item(), [t.float() for t in
+                                    _leaves(g["projector"])])
+        del g
+    g_scale = max(t.abs().max().item() for t in grads["unwrapped"][1])
+    g_err = max((a - b).abs().max().item() for a, b in
+                zip(grads["mesh"][1], grads["unwrapped"][1])) / g_scale
+    if not g_err <= MESH_RTOL:
+        raise AssertionError(f"multigpu align7b projector gradient err "
+                             f"{g_err} of its max")
+    out = {"loss_rel_err": _mesh_gate("align7b loss", grads["mesh"][0],
+                                      grads["unwrapped"][0]),
+           "proj_grad_err_of_max": g_err,
+           "grad_bit_equal": grads["mesh"][0] == grads["unwrapped"][0]
+           and all(torch.equal(a, b) for a, b in
+                   zip(grads["mesh"][1], grads["unwrapped"][1]))}
+    del grads
+
+    # one step each from the same state (the projector put back between)
+    proj = _leaves(params["projector"])
+    snap = [t.clone() for t in proj]
+    steps, states, after, peaks, counts = {}, {}, {}, {}, {}
+    for key, tree, m in (("unwrapped", params, None),
+                         ("mesh", sharded, mesh)):
+        for t, s in zip(proj, snap):
+            t.copy_(s)
+        states[key] = create_train_state(tree, tx)
+        steps[key] = make_train_step(cfg, tx, mesh=m, **common)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        (states[key], metrics), counts[key], by_dtype = _counted(
+            kernels, lambda: steps[key](states[key], batch))
+        peaks[key] = torch.cuda.max_memory_allocated(dev) - base
+        after[key] = ({k: v.item() for k, v in metrics.items()},
+                      [t.clone() for t in proj])
+        expected = {"flash_fwd": 2 * cfg.llm.n_layers + sum(
+            v.depth - 1 for _, v in cfg.vision),
+            "flash_bwd_dq": cfg.llm.n_layers,
+            "flash_bwd_dkv": cfg.llm.n_layers, "int4_matmul": 0}
+        if counts[key] != expected or by_dtype != {
+                k: ({"bfloat16": n} if n else {})
+                for k, n in expected.items()}:
+            raise AssertionError(f"multigpu align7b {key} launches "
+                                 f"{counts[key]} ({by_dtype}) != "
+                                 f"{expected}, all bf16")
+    m_u, p_u = after["unwrapped"]
+    m_m, p_m = after["mesh"]
+    for k in ("loss", "grad_norm"):
+        out[f"step_{k}_rel_err"] = _mesh_gate(f"align7b step {k}", m_m[k],
+                                              m_u[k])
+    upd = max((a - b).abs().max().item() for a, b in zip(p_m, p_u))
+    if not upd <= MESH_RTOL * max(t.abs().max().item() for t in p_u):
+        raise AssertionError(f"multigpu align7b updated projector differs "
+                             f"by {upd}")
+    out["step_bit_equal"] = m_m == m_u and upd == 0.0
+    out["launches_per_step"] = counts["mesh"]
+    out["peak_step_bytes"] = peaks
+    out["mesh_minus_unwrapped_peak_bytes"] = peaks["mesh"] - peaks["unwrapped"]
+    times = {"unwrapped": [], "mesh": []}
+    for key in ["unwrapped", "mesh", "mesh", "unwrapped"] * 2:
+        t0 = time.perf_counter()
+        states[key], metrics = steps[key](states[key], batch)
+        metrics["loss"].item()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = times
+    out["step_ms_median"] = {k: float(np.median(v))
+                             for k, v in times.items()}
+    del states, steps, params, sharded, tx, batch, snap, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_vla_train(dev, kernels, mesh) -> dict:
+    """vla-train's 8-layer cut through ``run_discrete_vla_training``:
+    ``MESH_VLA_STEPS`` steps unwrapped, then on the mesh with the mesh's
+    checkpoint save (rank 0 writes the gathered tree) and restore (each
+    rank its blocks), against the unwrapped losses and the live state."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from emmax_torch.data.collators import BatchLoader, collate_train
+    from emmax_torch.data.gcot import (GCOTDataset, SyntheticFrameSource,
+                                       make_dummy_gcot_items)
+    from emmax_torch.data.prefetch import PrefetchingLoader
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.parallel.sharding import data_extent, data_index
+    from emmax_torch.training.checkpointing import CheckpointManager
+    from emmax_torch.training.loop import (LoopConfig,
+                                           run_discrete_vla_training)
+    from emmax_torch.training.metrics import VLADiscreteMetrics
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  stage_from_flags,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import make_train_step
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    base = emma_x_vlm_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, n_layers=VLA_LAYERS))
+    tokenizer = load_tokenizer(None)
+    dataset = GCOTDataset(make_dummy_gcot_items(4 * VLA_B),
+                          ActionTokenizer(tokenizer), tokenizer,
+                          SyntheticFrameSource(256),
+                          data_mix="movement_policy", mask_inst=True)
+    transforms = get_image_transforms("dinosiglip-vit-so-224px",
+                                      "resize-naive")
+    stage = stage_from_flags(True, False, False)
+    tmp = tempfile.mkdtemp(prefix="emmax_multigpu_")
+    runs = {}
+    try:
+        for key, m in (("unwrapped", None), ("mesh", mesh)):
+            # the trainer's per-rank loader: this data rank's rows
+            n_data = data_extent(m) if m is not None else 1
+            loader = BatchLoader(
+                dataset, VLA_B // n_data, lambda s: collate_train(
+                    s, tokenizer.pad_id, max_length=cfg.llm.max_seq_len),
+                seed=7, num_shards=n_data,
+                shard_index=data_index(m) if m is not None else 0)
+            gen = torch.Generator(dev)
+            gen.manual_seed(1)
+            params = init_vlm_params(gen, cfg, torch.float32, dev)
+            tx, schedule = make_optimizer(
+                params, learning_rate=2e-5, weight_decay=0.0,
+                max_grad_norm=1.0, lr_scheduler_type="constant",
+                total_steps=MESH_VLA_STEPS, stage=stage)
+            freeze = trainable_mask(params, stage)
+            if m is not None:
+                params = shard_params(params, m)
+            state = create_train_state(params, tx)
+            step_fn = make_train_step(
+                cfg, tx, attn_impl="cuda", remat=True,
+                compute_dtype=torch.bfloat16, transforms=transforms,
+                stop_vision_gradient=True, freeze_mask=freeze,
+                action_vocab_size=tokenizer.vocab_size, mesh=m)
+            ckpt = CheckpointManager(tmp, mesh=m) if m is not None else None
+            metrics = VLADiscreteMetrics([])
+            t0 = time.perf_counter()
+            state, launches, _ = _counted(kernels, lambda: (
+                run_discrete_vla_training(
+                    vlm_cfg=cfg, state=state, train_step=step_fn,
+                    loader=PrefetchingLoader(loader, dev, mesh=m),
+                    metrics=metrics,
+                    loop_cfg=LoopConfig(epochs=1, max_steps=MESH_VLA_STEPS,
+                                        eval_every=10 ** 6,
+                                        save_every=10 ** 6, log_every=1),
+                    device=dev, mesh=m, ckpt_manager=ckpt,
+                    lr_fn=schedule)))
+            loop_s = time.perf_counter() - t0
+            runs[key] = {"losses": list(metrics.deques["loss"]),
+                         "launches": launches, "loop_s": loop_s}
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if launches[name] == 0:
+                    raise AssertionError(f"multigpu vla-train {key} "
+                                         f"launched no {name}")
+            if key == "unwrapped":
+                del state, params, tx, step_fn
+                gc.collect()
+                torch.cuda.empty_cache()
+        u, w = runs["unwrapped"], runs["mesh"]
+        if len(w["losses"]) != MESH_VLA_STEPS or w["launches"] != u[
+                "launches"]:
+            raise AssertionError(f"multigpu vla-train: {runs}")
+        errs = [_mesh_gate(f"vla-train loss {i}", a, b)
+                for i, (a, b) in enumerate(zip(w["losses"], u["losses"]))]
+        path = ckpt.latest()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(path)
+        restore_s = time.perf_counter() - t0
+        same = restored.step == state.step == MESH_VLA_STEPS and all(
+            torch.equal(a, b) for a, b in zip(_leaves(state.params),
+                                              _leaves(restored.params)))
+        for key in ("mu", "nu"):
+            same = same and all(
+                (a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(state.opt_state[key],
+                                restored.opt_state[key]))
+        if not same:
+            raise AssertionError(f"multigpu vla-train: checkpoint "
+                                 f"{path.name} does not restore the state")
+        ckpt_gb = sum(f.stat().st_size for f in path.iterdir()) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"steps": MESH_VLA_STEPS, "runs": runs, "loss_rel_errs": errs,
+           "checkpoint_gb": ckpt_gb, "restore_s": restore_s,
+           "restored_equal": True}
+    del state, restored, params, tx, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serving(dev, kernels, mesh) -> dict:
+    """``ServingEngine(cfg, shard_params(bf16 params, mesh), tok,
+    mesh=mesh)``: one 64-token request against the unsharded engine on the
+    same params: the same tokens and launches (fp32 flash forward depth -
+    1 per tower, bf16 once per decoder layer)."""
+    from emmax_torch.models.load import load
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.ops.image import preprocess_for_towers
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.serving.engine import GenerateOptions, ServingEngine
+
+    cfg, params, tok, transforms, family = load(
+        MODEL_ID, dtype=torch.bfloat16, device="cuda", seed=0)
+    prompt = EmmaXVLA(cfg, params, tok, transforms, llm_family=family,
+                      device=dev).get_prompt(TASK, gripper_position=(128, 96))
+    frame = np.random.default_rng(7).integers(0, 256, (1, 256, 256, 3),
+                                              dtype=np.uint8)
+    pixels = preprocess_for_towers(torch.from_numpy(frame).to(dev),
+                                   transforms)
+    opts = GenerateOptions(eos_id=tok.eos_id, max_new_tokens=MAX_NEW)
+    out = {}
+    for key, tree, m in (("unwrapped", params, None),
+                         ("mesh", shard_params(params, mesh), mesh)):
+        engine = ServingEngine(cfg, tree, tok, options=opts, device=dev,
+                               mesh=m)
+        engine.generate_ids([prompt], pixels)          # warm-up
+        t0 = time.perf_counter()
+        ids, launches, by_dtype = _counted(
+            kernels, lambda: engine.generate_ids([prompt], pixels))
+        out[key] = {"ids": ids[0].tolist(), "launches": launches,
+                    "flash_fwd_by_dtype": by_dtype["flash_fwd"],
+                    "request_ms": (time.perf_counter() - t0) * 1e3}
+    tower_blocks = sum(v.depth - 1 for _, v in cfg.vision)
+    want = {"float32": tower_blocks, "bfloat16": cfg.llm.n_layers}
+    if (out["mesh"]["ids"] != out["unwrapped"]["ids"]
+            or out["mesh"]["launches"] != out["unwrapped"]["launches"]
+            or out["mesh"]["flash_fwd_by_dtype"] != want):
+        raise AssertionError(f"multigpu serving: {out} (flash forwards "
+                             f"by dtype wanted {want})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def multigpu_phase(dev, kernels) -> dict:
+    """The multi-GPU path at world size 1: a NCCL process group joined
+    in-process (``initialize_distributed``), the (1, 1, 1) mesh on
+    "cuda", and the full-width align7b step, vla-train's 8-layer trainer
+    with a checkpoint, and a served request through it, each against the
+    unwrapped path."""
+    import socket
+
+    import torch.distributed as dist
+
+    from emmax_torch.parallel import initialize_distributed, make_mesh
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    rank = initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh((1, 1, 1), device_type="cuda")
+        out = {"rank": rank, "backend": dist.get_backend(),
+               "world_size": dist.get_world_size(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        if out["backend"] != "nccl" or out["world_size"] != 1:
+            raise AssertionError(f"multigpu: {out}")
+        out["align7b"] = _mesh_align7b(dev, kernels, mesh)
+        log("multigpu align7b " + json.dumps(out["align7b"]))
+        out["vla_train"] = _mesh_vla_train(dev, kernels, mesh)
+        log("multigpu vla-train " + json.dumps(out["vla_train"]))
+        out["serving"] = _mesh_serving(dev, kernels, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2794,6 +3156,10 @@ def main(argv) -> int:
     full = vla_full_train_fp32_phase(dev, kernels)
     log("training " + json.dumps({"align7b": align, "vla_train": vla,
                                   "vla_full_train_fp32": full}))
+    log_phase("multigpu_phase")
+    multi = multigpu_phase(dev, kernels)
+    log("multigpu " + json.dumps(multi))
+    mstep = multi["align7b"]["launches_per_step"]
 
     def entry(rec, kernel, replaces, launches, **extra):
         return {"name": extra.pop("name", kernel.name), "route": "cuda",
@@ -2833,6 +3199,9 @@ def main(argv) -> int:
         entry(by_name["flash_fwd_lse"], fa.KERNEL,
               "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
               launches_path="align7b train step",
+              launches_multigpu_align7b_step=mstep["flash_fwd"],
+              launches_multigpu_request_by_dtype=multi["serving"]["mesh"][
+                  "flash_fwd_by_dtype"],
               **fwd_res["tc::fwd_kernel<128>"],
               serving={"shape": prefill["shape"], "ms": prefill["ms"],
                        "plain_ms": prefill["plain_ms"],
@@ -2852,10 +3221,12 @@ def main(argv) -> int:
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
               launches_path="align7b train step",
+              launches_multigpu_align7b_step=mstep["flash_bwd_dq"],
               **bwd_res["tc::dq_kernel<128>"]),
         entry(by_name["flash_bwd_dkv"], fa.DKV_KERNEL,
               "emmax_tpu/ops/flash_attention.py:445",
               step["flash_bwd_dkv"], launches_path="align7b train step",
+              launches_multigpu_align7b_step=mstep["flash_bwd_dkv"],
               **bwd_res["tc::dkv_kernel<128, false>"],
               fused={**{k: by_name["flash_bwd_dkv_fused"][k] for k in
                         ("ms", "eager_ms", "max_abs_err", "bound_ms",

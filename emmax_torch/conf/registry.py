@@ -9,6 +9,7 @@ override (``--vla.max_steps 3``); the resolved config round-trips to JSON.
 from __future__ import annotations
 
 import dataclasses
+import json
 import typing
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Type, TypeVar
@@ -68,6 +69,11 @@ def _coerce(value: str, ann: Any) -> Any:
         raise ValueError(f"invalid boolean {value!r} (use true/false)")
     if ann in (int, float):
         return ann(value)
+    if origin in (list, tuple):
+        items = json.loads(value) if value.startswith("[") else value.split(",")
+        inner = (typing.get_args(ann) or (str,))[0]
+        seq = [_coerce(str(v), inner) for v in items]
+        return tuple(seq) if origin is tuple else seq
     return value
 
 

@@ -3,8 +3,9 @@
 
 Experiments are generated from a compact table and registered under the
 reference's ``vla_id`` strings, so ``VLAConfig.get_choice_class(id)``
-resolves every experiment id. The JAX package's TPU mesh layout
-(``mesh_shape``) has no counterpart on one GPU and is left out;
+resolves every experiment id. ``train_strategy`` picks the trainer's
+(replica, fsdp, tensor) mesh (``parallel.mesh.strategy_to_mesh_shape``);
+``mesh_shape`` is the JAX package's field, recorded as there;
 ``remat_policy`` picks the decoder's activation checkpointing
 ("none" | "block" | "full" | "dots").
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 from emmax_torch.conf.registry import ChoiceRegistry
 
@@ -44,8 +45,11 @@ class VLAConfig(ChoiceRegistry):
     lr_scheduler_type: str = "constant"
     warmup_ratio: float = 0.0
 
-    # the reference's strategy name (one GPU: recorded, not acted on)
+    # the reference's strategy name -> the trainer's mesh:
+    # fsdp-full-shard (1, N, 1), fsdp-shard-grad-op (hosts, N/hosts, 1),
+    # ddp (N, 1, 1)
     train_strategy: str = "fsdp-full-shard"
+    mesh_shape: Tuple[int, ...] = (1, -1, 1)   # (replica, fsdp, tensor)
     # none | block | full | dots ("dots" keeps the matmul outputs and
     # recomputes the elementwise ops; block and full coincide, the
     # checkpointed unit being the decoder layer)

@@ -6,7 +6,9 @@ the device runs the current step, and each batch's copy to the card is
 issued one step ahead on a side CUDA stream from pinned memory, so the
 copy overlaps the step before it. The consumer's stream waits on the
 copy's event before using the batch. On the CPU the batches are only
-converted to tensors.
+converted to tensors. Under a mesh each rank's loader yields its own rows
+(``BatchLoader(num_shards=, shard_index=)``), and they go to the rank's
+device in the mesh.
 """
 
 from __future__ import annotations
@@ -121,11 +123,15 @@ def _ready(batch, event):
 
 
 class PrefetchingLoader:
-    """``BatchLoader``-compatible wrapper adding device prefetch."""
+    """``BatchLoader``-compatible wrapper adding device prefetch; with a
+    ``mesh`` the batches (this rank's rows) go to the rank's device in it
+    (``parallel.sharding.mesh_device``)."""
 
-    def __init__(self, loader, device, depth: int = 2) -> None:
+    def __init__(self, loader, device, depth: int = 2, mesh=None) -> None:
+        from emmax_torch.parallel.sharding import mesh_device
+
         self.loader = loader
-        self.device = device
+        self.device = mesh_device(mesh) if mesh is not None else device
         self.depth = depth
 
     def epoch(self, epoch: int = 0):

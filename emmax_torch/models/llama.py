@@ -22,6 +22,13 @@ and is read back dequantized in the compute dtype, as in JAX.
 The uncached path is the training path: each layer may be rematerialized
 (``remat``), and the loss heads (``cross_entropy_loss``, the
 memory-lean ``chunked_ce_loss_and_preds``) are here as in JAX.
+
+``mesh`` (a ``DeviceMesh``; None on one device): the params are this
+rank's blocks (``parallel.shard_params``). Each layer gathers its full
+weights where it starts (inside the remat region, so a rematerialized
+backward gathers again), the embedding and lm_head where they are read,
+and the losses divide global sums by global counts
+(``parallel/gather.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,9 @@ from emmax_torch.models.tree import ParamTree
 from emmax_torch.ops.attention import multi_head_attention, per_row
 from emmax_torch.ops.norms import rms_norm
 from emmax_torch.ops.rope import apply_rope, rope_cos_sin
+from emmax_torch.parallel.constraints import constrain_batch_sharded
+from emmax_torch.parallel.gather import (gather, gather_tree, global_mean,
+                                         layer_blocks)
 
 Params = Dict[str, Any]
 IGNORE_INDEX = -100
@@ -168,18 +178,19 @@ def layer_slice(layers: Params, i: int) -> Params:
     return out
 
 
-def layer_list(layers: Params, n_layers: int) -> List[Params]:
+def layer_list(layers: Params, n_layers: int, mesh=None) -> List[Params]:
     """Every layer's params. Dense stacked leaves are unbound once
     (``torch.unbind``), so under autograd the backward stacks the layers'
     gradients once; indexing ``w[i]`` per layer would instead add a zero
-    tensor the size of the whole stack for every layer."""
-    dense = {k: torch.unbind(v) for k, v in layers.items()
-             if isinstance(v, torch.Tensor)}
-    rest = {k: v for k, v in layers.items() if k not in dense}
+    tensor the size of the whole stack for every layer. Under a mesh each
+    layer's blocks keep their spec, for the gather where the layer runs."""
+    dense = layer_blocks({k: v for k, v in layers.items()
+                          if isinstance(v, torch.Tensor)}, n_layers, mesh)
+    rest = {k: v for k, v in layers.items() if not isinstance(v, torch.Tensor)}
     out = []
     for i in range(n_layers):
         p = layer_slice(rest, i)
-        p.update({k: v[i] for k, v in dense.items()})
+        p.update(dense[i])
         out.append(p)
     return out
 
@@ -219,8 +230,10 @@ def _mlp(h: torch.Tensor, p: Params, cfg: LlamaConfig) -> torch.Tensor:
                   p["w_down"])
 
 
-def _layer(h, p, cos, sin, kv_mask, cfg: LlamaConfig, attn_impl: str):
+def _layer(h, p, cos, sin, kv_mask, cfg: LlamaConfig, attn_impl: str,
+           mesh=None):
     """One decoder layer (uncached path, causal)."""
+    p = gather_tree(p, mesh)
     B, L, _ = h.shape
     x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
     q = mm(x, p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
@@ -267,10 +280,12 @@ def _cache_read(cache: Params, key: str, i: int,
 
 
 def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
-                  cfg: LlamaConfig, attn_impl: str, chunk_mask=None):
+                  cfg: LlamaConfig, attn_impl: str, chunk_mask=None,
+                  mesh=None):
     """One decoder layer that writes its K/V into the cache at ``t0`` (host
     int or per-row [B] cursors) and attends over the layer's whole cache
     (the chunk's own slots under ``chunk_mask`` where one is given)."""
+    p = gather_tree(p, mesh)
     B, L, _ = h.shape
     x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
     k_new = mm(x, p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
@@ -306,8 +321,8 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                   remat: Remat = False,
                   logits_dtype: torch.dtype = torch.float32,
                   return_hidden: bool = False,
-                  chunk_attn_mask: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+                  chunk_attn_mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (logits [B, L, V], the kv_cache or None).
 
     Without a cache: causal self-attention over the L tokens (+ the [B, L]
@@ -328,6 +343,8 @@ def llama_forward(params: Params, cfg: LlamaConfig,
     past slot and chunk slot j iff ``chunk_attn_mask[i, j]`` instead of
     causally (``ops/attention._dense_mask``); the caller gives the tree's
     ``positions`` (depths, not slot order).
+
+    ``mesh``: see the module docstring.
     """
     if chunk_attn_mask is not None and kv_cache is None:
         raise ValueError("chunk_attn_mask requires a kv_cache (tree chunks "
@@ -347,10 +364,12 @@ def llama_forward(params: Params, cfg: LlamaConfig,
     layers = params["layers"]
 
     h = inputs_embeds
+    per_layer = layer_list(layers, cfg.n_layers, mesh)
     if kv_cache is None:
-        for p in layer_list(layers, cfg.n_layers):
+        h = constrain_batch_sharded(h)
+        for p in per_layer:
             h = remat_call(remat, _layer, h, p, cos, sin, mask, cfg,
-                           attn_impl)
+                           attn_impl, mesh)
     else:
         t0 = kv_cache["len"]
         S = kv_cache["k"].shape[2]
@@ -364,35 +383,38 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                                  "slots")
             kv_cache["mask"][:, t0:t0 + L] = (
                 True if mask is None else mask.to(torch.bool))
-        for i in range(cfg.n_layers):
-            h = _cached_layer(h, layer_slice(layers, i), cos, sin, kv_cache,
-                              i, t0, kv_cache["mask"], cfg, attn_impl,
-                              chunk_attn_mask)
+        for i, p in enumerate(per_layer):
+            h = _cached_layer(h, p, cos, sin, kv_cache, i, t0,
+                              kv_cache["mask"], cfg, attn_impl,
+                              chunk_attn_mask, mesh)
         kv_cache["len"] = t0 + L
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return h, kv_cache
-    logits = mm(h, params["lm_head"]).to(logits_dtype)
+    logits = mm(h, gather(params["lm_head"], mesh)).to(logits_dtype)
     return logits, kv_cache
 
 
-def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, input_ids: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """Rows of the embedding table. An id past the table (the byte-level
     tokenizer's pad id is its ``vocab_size``) reads the last row, as the
     JAX package's clamped gather does; such slots are masked."""
-    table = params["embed"]
+    table = gather(params["embed"], mesh)
     return table[input_ids.clamp(max=table.shape[0] - 1)]
 
 
 def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
-                              *, chunk: int = 128):
+                              *, chunk: int = 128, mesh=None):
     """Sequence-chunked shifted CE and greedy preds from the final hidden
     states: the same fp32 log-softmax per position and masked mean as
     ``mm(h, lm_head)`` + :func:`cross_entropy_loss`, but each ``chunk`` of
     positions is checkpointed, so the full fp32 [B, L, vocab] logits and
     their gradient never exist at once (the backward re-runs one chunk's
-    lm_head matmul at a time). Returns (loss, preds [B, L])."""
+    lm_head matmul at a time). Returns (loss, preds [B, L]); under a
+    ``mesh`` the loss is the global batch's (``global_mean``)."""
+    lm_head = gather(lm_head, mesh)
     B, L, _ = h.shape
     shifted = torch.cat([labels[:, 1:], torch.full(
         (B, 1), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)],
@@ -417,7 +439,7 @@ def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
         count = count + cnt
         preds.append(pr)
     preds = torch.cat(preds, dim=1)[:, :L]
-    return loss_sum / torch.clamp(count, min=1), preds
+    return global_mean(loss_sum, count, mesh), preds
 
 
 def _nll_sum(logits: torch.Tensor, targets: torch.Tensor):
@@ -429,12 +451,15 @@ def _nll_sum(logits: torch.Tensor, targets: torch.Tensor):
     return (-torch.where(valid, ll, 0.0)).sum(), valid.sum()
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mesh=None) -> torch.Tensor:
     """Shifted next-token CE with IGNORE_INDEX masking, in fp32 (the JAX
-    package's, and torch ``CrossEntropyLoss(ignore_index=-100)``)."""
+    package's, and torch ``CrossEntropyLoss(ignore_index=-100)``). Under a
+    ``mesh`` the sum and the count are each summed over the data ranks
+    before the division (rows hold unequal numbers of labels, so a mean
+    of the ranks' means would be wrong)."""
     total, count = _nll_sum(logits[:, :-1].float(), labels[:, 1:])
-    return total / torch.clamp(count, min=1)
+    return global_mean(total, count, mesh)
 
 
 class Llama(nn.Module):

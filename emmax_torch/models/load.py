@@ -21,10 +21,11 @@ policy from:
 A checkpoint's tensors are read through a map of its files and each
 leaf is converted straight onto the device, so the host holds no second
 copy of the tree. ``quantize="int8"|"int4"`` quantizes the decoder's
-matmul weights and the lm_head. From a checkpoint that happens on the
-host: the tree is converted there, and each stacked leaf is quantized
-before it moves to the device, so the dense and the quantized tree never
-share device memory (the JAX package quantizes on the host too).
+matmul weights and the lm_head. From a checkpoint the tree is converted
+on the host, and each stacked leaf moves to the device one layer at a
+time and is quantized there, so the device never holds a dense stacked
+leaf beside the quantized tree (the JAX package quantizes on the host;
+the bytes are the same).
 """
 
 from __future__ import annotations
@@ -161,11 +162,24 @@ def _cast_tree(tree, dtype, device="cpu"):
     return tree.to(device, dtype if tree.is_floating_point() else None)
 
 
+def _quantize_layers(w: torch.Tensor, device, qfn) -> dict:
+    """``qfn`` of a host ``[L, D, F]`` leaf, computed on ``device`` one
+    layer at a time into stacked outputs (a weight's quantization is per
+    layer, so the bytes are those of the whole leaf's)."""
+    out = {}
+    for i in range(w.shape[0]):
+        for k, v in qfn(w[i].to(device)).items():
+            if k not in out:
+                out[k] = v.new_empty((w.shape[0],) + v.shape)
+            out[k][i] = v
+    return out
+
+
 def place_params(host: dict, device, quantize: str) -> dict:
     """A CPU tree -> the same tree on ``device``, leaf by leaf, each
     decoder matmul weight and the lm_head quantized (``quantize`` "int8"
-    or "int4") on the host by the ``serving/quant.py`` quantizers, so only
-    the quantized leaf moves."""
+    or "int4") on ``device`` by the ``serving/quant.py`` quantizers, one
+    layer of a stacked leaf moved at a time."""
     def move(tree):
         return _cast_tree(tree, None, device)
 
@@ -174,8 +188,8 @@ def place_params(host: dict, device, quantize: str) -> dict:
     layers = dict(llm.pop("layers"))
     for key in QUANT_KEYS:
         if key in layers:
-            layers[key] = move(qfn(layers.pop(key)))
-    lm_head = move(qfn(llm.pop("lm_head")))
+            layers[key] = _quantize_layers(layers.pop(key), device, qfn)
+    lm_head = qfn(llm.pop("lm_head").to(device))
     return {"vision": move(host["vision"]),
             "projector": move(host["projector"]),
             "llm": {**move(llm), "layers": move(layers), "lm_head": lm_head}}
@@ -211,14 +225,18 @@ def load_checkpoint_params(path, cfg: VLMConfig, dtype=torch.bfloat16,
 def load(model_id_or_path, dtype: torch.dtype = torch.bfloat16,
          tokenizer_path: Optional[str] = None,
          quantize: Optional[str] = None, device="cuda", seed: int = 0,
-         init_if_missing: bool = False):
+         init_if_missing: bool = False, quantize_int8: bool = False):
     """Load a VLM. Returns (cfg, params, tokenizer, transforms, family).
 
     ``model_id_or_path``: a registered id (random weights drawn on
     ``device`` from ``seed``) or a checkpoint directory (see the module
     docstring). ``quantize``: None, "int8" (per-channel) or "int4"
     (nibble-packed group-128, read by the int4 kernel).
+    ``quantize_int8=True`` is the back-compat spelling of
+    ``quantize="int8"``; an explicit ``quantize`` wins.
     """
+    if quantize_int8:
+        quantize = quantize or "int8"
     if quantize not in (None, "int8", "int4"):
         raise ValueError(f"quantize={quantize!r}: expected 'int8' or 'int4'")
     device = resolve_device(device)
@@ -290,7 +308,8 @@ def load_vla(model_id_or_path, dtype: torch.dtype = torch.bfloat16,
              quantize: Optional[str] = None, device="cuda", seed: int = 0,
              norm_stats: Optional[dict] = None,
              proprio_stats: Optional[dict] = None,
-             speculative: bool = False, init_if_missing: bool = False):
+             speculative: bool = False, init_if_missing: bool = False,
+             quantize_int8: bool = False):
     """Load a VLA policy -> ``EmmaXVLA`` (see :func:`load`). A checkpoint
     directory's statistics come from its sidecars unless ``norm_stats`` /
     ``proprio_stats`` are given; ``speculative`` serves it on the
@@ -300,7 +319,7 @@ def load_vla(model_id_or_path, dtype: torch.dtype = torch.bfloat16,
     cfg, params, tokenizer, transforms, family = load(
         model_id_or_path, dtype=dtype, tokenizer_path=tokenizer_path,
         quantize=quantize, device=device, seed=seed,
-        init_if_missing=init_if_missing)
+        init_if_missing=init_if_missing, quantize_int8=quantize_int8)
     file_norm, file_proprio = read_stats(model_id_or_path)
     return EmmaXVLA(cfg, params, tokenizer, transforms,
                     norm_stats=norm_stats if norm_stats is not None

@@ -15,6 +15,7 @@ from torch import nn
 
 from emmax_torch.models.tree import ParamTree
 from emmax_torch.models.vit import linear
+from emmax_torch.parallel.gather import gather
 
 Params = Dict[str, Any]
 
@@ -48,10 +49,12 @@ def init_projector_params(generator: torch.Generator, arch_specifier: str,
     return {"layers": layers}
 
 
-def projector_forward(params: Params, x: torch.Tensor) -> torch.Tensor:
+def projector_forward(params: Params, x: torch.Tensor,
+                      mesh=None) -> torch.Tensor:
+    """``mesh``: the kernels are this rank's blocks, gathered at use."""
     layers = params["layers"]
     for i, layer in enumerate(layers):
-        x = linear(x, layer["kernel"], layer["bias"])
+        x = linear(x, gather(layer["kernel"], mesh), layer["bias"])
         if i + 1 < len(layers):
             x = F.gelu(x)
     return x

@@ -9,7 +9,10 @@
   spliced in after the pos add;
 - layer norm statistics in fp32, exact GELU (DINOv2) or tanh GELU (SigLIP);
 - dtypes follow JAX's promotion: f32 pixels against bf16 weights run the
-  tower in f32 (each weight is upcast where it is used).
+  tower in f32 (each weight is upcast where it is used);
+- under a ``mesh`` the params are this rank's blocks and each block's
+  weights (and the patch-embedding kernel) are gathered where they are
+  used (``parallel/gather.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from torch import nn
 from emmax_torch.models.tree import ParamTree
 from emmax_torch.ops.attention import multi_head_attention
 from emmax_torch.ops.norms import layer_norm
+from emmax_torch.parallel.constraints import constrain_batch_sharded
+from emmax_torch.parallel.gather import gather, gather_tree, layer_blocks
 
 Params = Dict[str, Any]
 
@@ -121,10 +126,12 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, patch * patch * C)
 
 
-def _embed(params: Params, cfg: ViTConfig,
-           images: torch.Tensor) -> torch.Tensor:
-    x = linear(patchify(images, cfg.patch_size),
-               params["patch_embed"]["kernel"], params["patch_embed"]["bias"])
+def _embed(params: Params, cfg: ViTConfig, images: torch.Tensor,
+           mesh=None) -> torch.Tensor:
+    images = constrain_batch_sharded(images)
+    x = constrain_batch_sharded(patchify(images, cfg.patch_size))
+    x = linear(x, gather(params["patch_embed"]["kernel"], mesh),
+               params["patch_embed"]["bias"])
     B = x.shape[0]
     if cfg.class_token:
         cls = params["cls_token"].expand(B, 1, cfg.dim).to(x.dtype)
@@ -139,7 +146,8 @@ def _embed(params: Params, cfg: ViTConfig,
 
 
 def _block(h: torch.Tensor, p: Params, cfg: ViTConfig,
-           attn_impl: str) -> torch.Tensor:
+           attn_impl: str, mesh=None) -> torch.Tensor:
+    p = gather_tree(p, mesh)
     B, L, D = h.shape
     x = layer_norm(h, p["norm1_scale"], p["norm1_bias"], cfg.norm_eps)
     qkv = linear(x, p["wqkv"], p["bqkv"])
@@ -162,7 +170,7 @@ def _block(h: torch.Tensor, p: Params, cfg: ViTConfig,
 def vit_forward(params: Params, cfg: ViTConfig, images: torch.Tensor, *,
                 num_blocks: Optional[int] = None, strip_prefix: bool = True,
                 final_norm: bool = False,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto", mesh=None) -> torch.Tensor:
     """images [B, H, W, 3] (normalized) -> features [B, N(, +prefix), D].
 
     Defaults give the Emma-X feature contract: ``depth - 1`` blocks, no
@@ -170,12 +178,12 @@ def vit_forward(params: Params, cfg: ViTConfig, images: torch.Tensor, *,
     """
     if num_blocks is None:
         num_blocks = cfg.depth - 1
-    h = _embed(params, cfg, images)
+    h = constrain_batch_sharded(_embed(params, cfg, images, mesh))
     # unbound once: under autograd the stack's gradient is built once
     # (see ``llama.layer_list``)
-    blocks = {k: torch.unbind(v) for k, v in params["blocks"].items()}
-    for i in range(num_blocks):
-        h = _block(h, {k: v[i] for k, v in blocks.items()}, cfg, attn_impl)
+    blocks = layer_blocks(params["blocks"], num_blocks, mesh)
+    for p in blocks:
+        h = _block(h, p, cfg, attn_impl, mesh)
     if final_norm:
         h = layer_norm(h, params["final_norm"]["scale"],
                        params["final_norm"]["bias"], cfg.norm_eps)

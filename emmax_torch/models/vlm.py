@@ -6,6 +6,11 @@ projected, and the patch embeddings are spliced after each row's BOS
 (``fuse_multimodal``) before the decoder runs. ``vlm_forward`` is the
 training forward (labels, masked CE, remat, chunked CE);
 ``text_forward`` the unimodal one.
+
+Every forward takes ``mesh=None``: under a ``DeviceMesh`` the params are
+this rank's blocks (``parallel.shard_params``), weights are gathered
+where they are used, and the loss is the global batch's
+(``parallel/gather.py``); None is the single-device path.
 """
 
 from __future__ import annotations
@@ -73,11 +78,12 @@ def llm_apply(params: Params, llm_cfg: LlamaConfig,
 
 def encode_tower_features(params: Params, cfg: VLMConfig,
                           pixel_values: Dict[str, torch.Tensor], *,
-                          attn_impl: str = "auto") -> torch.Tensor:
+                          attn_impl: str = "auto",
+                          mesh=None) -> torch.Tensor:
     """Every tower on its own normalized image, concatenated on channels:
     the projector's input [B, P, sum of tower widths]."""
     feats = [vit_forward(params["vision"][name], vcfg, pixel_values[name],
-                         attn_impl=attn_impl)
+                         attn_impl=attn_impl, mesh=mesh)
              for name, vcfg in cfg.vision]
     return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
 
@@ -85,7 +91,8 @@ def encode_tower_features(params: Params, cfg: VLMConfig,
 def encode_images(params: Params, cfg: VLMConfig,
                   pixel_values: Dict[str, torch.Tensor], *,
                   attn_impl: str = "auto",
-                  stop_tower_gradient: bool = False) -> torch.Tensor:
+                  stop_tower_gradient: bool = False,
+                  mesh=None) -> torch.Tensor:
     """Tower features projected to the LLM width: -> [B, P, llm_dim].
 
     ``stop_tower_gradient`` stops gradients at the tower outputs, before
@@ -95,11 +102,11 @@ def encode_images(params: Params, cfg: VLMConfig,
     if stop_tower_gradient:
         with torch.no_grad():
             fused = encode_tower_features(params, cfg, pixel_values,
-                                          attn_impl=attn_impl)
+                                          attn_impl=attn_impl, mesh=mesh)
     else:
         fused = encode_tower_features(params, cfg, pixel_values,
-                                      attn_impl=attn_impl)
-    return projector_forward(params["projector"], fused)
+                                      attn_impl=attn_impl, mesh=mesh)
+    return projector_forward(params["projector"], fused, mesh)
 
 
 def fuse_multimodal(patch_embeds: torch.Tensor, input_embeds: torch.Tensor,
@@ -161,7 +168,7 @@ def vlm_forward(params: Params, cfg: VLMConfig, input_ids: torch.Tensor,
                 kv_cache: Optional[Params] = None, attn_impl: str = "auto",
                 remat=False, stop_vision_gradient: bool = False,
                 multimodal_mask: Optional[torch.Tensor] = None,
-                ce_chunk: Optional[int] = None):
+                ce_chunk: Optional[int] = None, mesh=None):
     """Multimodal forward. Returns (logits, loss or None, kv_cache or None).
 
     The logits cover the fused sequence [bos | patches | text[1:]].
@@ -174,34 +181,36 @@ def vlm_forward(params: Params, cfg: VLMConfig, input_ids: torch.Tensor,
                           device=input_ids.device)
     patch_embeds = encode_images(params, cfg, pixel_values,
                                  attn_impl=attn_impl,
-                                 stop_tower_gradient=stop_vision_gradient)
-    input_embeds = embed_tokens(params["llm"], input_ids)
+                                 stop_tower_gradient=stop_vision_gradient,
+                                 mesh=mesh)
+    input_embeds = embed_tokens(params["llm"], input_ids, mesh)
     embeds, fmask, flabels, positions = fuse_multimodal(
         patch_embeds, input_embeds, mask, labels,
         multimodal_mask=multimodal_mask)
     kw = dict(mask=fmask, positions=positions, kv_cache=kv_cache,
-              attn_impl=attn_impl, remat=remat)
+              attn_impl=attn_impl, remat=remat, mesh=mesh)
     if ce_chunk and flabels is not None:
         h, kv_cache = llm_apply(params["llm"], cfg.llm, embeds,
                                 return_hidden=True, **kw)
         loss, preds = chunked_ce_loss_and_preds(
-            h, params["llm"]["lm_head"], flabels, chunk=ce_chunk)
+            h, params["llm"]["lm_head"], flabels, chunk=ce_chunk, mesh=mesh)
         return preds, loss, kv_cache
     logits, kv_cache = llm_apply(params["llm"], cfg.llm, embeds, **kw)
-    loss = (cross_entropy_loss(logits, flabels) if flabels is not None
-            else None)
+    loss = (cross_entropy_loss(logits, flabels, mesh)
+            if flabels is not None else None)
     return logits, loss, kv_cache
 
 
 def text_forward(params: Params, cfg: VLMConfig, input_ids: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  labels: Optional[torch.Tensor] = None, *,
-                 attn_impl: str = "auto", remat=False):
+                 attn_impl: str = "auto", remat=False, mesh=None):
     """Unimodal (text-only) forward. Returns (logits, loss or None)."""
-    embeds = embed_tokens(params["llm"], input_ids)
+    embeds = embed_tokens(params["llm"], input_ids, mesh)
     logits, _ = llm_apply(params["llm"], cfg.llm, embeds, mask=mask,
-                          attn_impl=attn_impl, remat=remat)
-    loss = cross_entropy_loss(logits, labels) if labels is not None else None
+                          attn_impl=attn_impl, remat=remat, mesh=mesh)
+    loss = (cross_entropy_loss(logits, labels, mesh)
+            if labels is not None else None)
     return logits, loss
 
 

@@ -113,8 +113,8 @@ def _quantize_2d(w: torch.Tensor, group: int, search: bool):
     numpy reduces a non-innermost axis in that order, and any other order
     (torch's cascade sum, a GPU tree reduction) can flip near-tied
     candidates and change the bytes. Each candidate's error is built in
-    place in one weight-sized buffer (no stack of ten fresh tensors: the
-    host quantizer of ``models.load`` runs this on 7B trees).
+    place in one weight-sized buffer (no stack of ten fresh tensors: 7B trees
+    are quantized with it).
     """
     D, F = w.shape
     G = D // group

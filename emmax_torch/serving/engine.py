@@ -15,6 +15,12 @@ The decode loop's semantics are the JAX package's ``_generate_multimodal``:
 the first token comes from the prefill's last logits, each step writes
 ``out[:, t] = where(done, eos, tok)`` and sets ``done |= tok == eos``, and
 the loop stops after ``max_new`` steps or when every row is done.
+
+``ServingEngine(cfg, parallel.shard_params(params, mesh), tok, mesh=mesh)``
+serves from each rank's blocks: every rank runs the same host loop on the
+same request, gathering each weight where it is used, and produces the
+tokens of the single-device engine (a quantized tree's ``q4`` / ``q8`` /
+``scale`` leaves are replicated, so it computes as on one device).
 """
 
 from __future__ import annotations
@@ -85,21 +91,23 @@ def _select_token(logits_f32: torch.Tensor, generator: torch.Generator,
 
 
 def resolve_patches(params, cfg: VLMConfig, vision_input: Dict,
-                    attn_impl: str = "auto") -> torch.Tensor:
+                    attn_impl: str = "auto", mesh=None) -> torch.Tensor:
     """``vision_input`` is a tower -> pixels dict (encoded now) or
     ``{"patches": [B, P, D]}``, projected patch embeddings made earlier
     (``encode_frame``). Engines compared token for token are fed the same
     patches: two encodes of one frame may round differently."""
     if "patches" in vision_input:
         return vision_input["patches"]
-    return encode_images(params, cfg, vision_input, attn_impl=attn_impl)
+    return encode_images(params, cfg, vision_input, attn_impl=attn_impl,
+                         mesh=mesh)
 
 
 @torch.inference_mode()
 def encode_frame(params, cfg: VLMConfig, pixel_values: Dict, *,
-                 attn_impl: str = "auto") -> torch.Tensor:
+                 attn_impl: str = "auto", mesh=None) -> torch.Tensor:
     """Vision towers + projector: pixels -> patch embeds [B, P, D]."""
-    return encode_images(params, cfg, pixel_values, attn_impl=attn_impl)
+    return encode_images(params, cfg, pixel_values, attn_impl=attn_impl,
+                         mesh=mesh)
 
 
 class VisionCache:
@@ -166,20 +174,21 @@ class VisionCache:
 @torch.inference_mode()
 def _prefill_last_logits(params, cfg: VLMConfig, input_ids: torch.Tensor,
                          mask: torch.Tensor, pixel_values: Dict, *,
-                         cache_len: int,
-                         attn_impl: str = "auto") -> torch.Tensor:
+                         cache_len: int, attn_impl: str = "auto",
+                         mesh=None) -> torch.Tensor:
     """Last-position fp32 logits [B, V] of the multimodal prefill (for
     string scoring)."""
     B = input_ids.shape[0]
     cache = init_kv_cache(cfg.llm, B, cache_len,
                           dtype=params["llm"]["embed"].dtype,
                           device=input_ids.device)
-    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl)
+    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
+                                   mesh)
     embeds, fmask, _, positions = fuse_multimodal(
-        patch_embeds, embed_tokens(params["llm"], input_ids), mask)
+        patch_embeds, embed_tokens(params["llm"], input_ids, mesh), mask)
     logits, _ = llm_apply(params["llm"], cfg.llm, embeds, mask=fmask,
                           positions=positions, kv_cache=cache,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, mesh=mesh)
     return logits[:, -1].float()
 
 
@@ -196,6 +205,8 @@ class ServingEngine:
     The same phases run inside ``torch.profiler`` ranges named
     ``emmax_torch.encode`` / ``.prefill`` / ``.decode``, which cost nothing
     when no profiler is active.
+
+    ``mesh``: ``params`` are this rank's blocks (module docstring).
     """
 
     def __init__(self, cfg: VLMConfig, params, tokenizer,
@@ -203,8 +214,9 @@ class ServingEngine:
                  attn_impl: str = "auto", buckets=DEFAULT_BUCKETS,
                  quantized_cache: bool = False,
                  vision_cache: Optional[VisionCache] = None,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.model = VLM(cfg, params)
         for name, buf in self.model.named_buffers():
@@ -235,7 +247,7 @@ class ServingEngine:
         patches = vc.lookup(fp)
         if patches is None:
             patches = encode_frame(self.model.tree(), self.cfg, pixel_values,
-                                   attn_impl=self.attn_impl)
+                                   attn_impl=self.attn_impl, mesh=self.mesh)
             vc.store(fp, patches)
         return {"patches": patches}
 
@@ -270,7 +282,7 @@ class ServingEngine:
                   pixel_values: Dict[str, torch.Tensor], max_new: int,
                   generator: torch.Generator) -> torch.Tensor:
         """ids/mask [B, L] (left-padded) -> tokens [B, max_new], EOS-padded."""
-        opts, cfg = self.options, self.cfg
+        opts, cfg, mesh = self.options, self.cfg, self.mesh
         params = self.model.tree()
         llm = params["llm"]
         B, L = ids.shape
@@ -290,14 +302,14 @@ class ServingEngine:
         mark(0)
         with record_function("emmax_torch.encode"):
             patch_embeds = resolve_patches(params, cfg, pixel_values,
-                                           self.attn_impl)
+                                           self.attn_impl, mesh)
         mark(1)
         with record_function("emmax_torch.prefill"):
             embeds, fmask, _, positions = fuse_multimodal(
-                patch_embeds, embed_tokens(llm, ids), mask)
+                patch_embeds, embed_tokens(llm, ids, mesh), mask)
             logits, cache = llm_apply(llm, cfg.llm, embeds, mask=fmask,
                                       positions=positions, kv_cache=cache,
-                                      attn_impl=self.attn_impl)
+                                      attn_impl=self.attn_impl, mesh=mesh)
             tok = _select_token(logits[:, -1].float(), generator,
                                 opts.temperature, opts.top_p)
         mark(2)
@@ -315,10 +327,10 @@ class ServingEngine:
                         (t + 1) % DONE_CHECK_EVERY == 0 and bool(done.all())):
                     break
                 lg, cache = llm_apply(llm, cfg.llm,
-                                      embed_tokens(llm, tok[:, None]),
+                                      embed_tokens(llm, tok[:, None], mesh),
                                       positions=(next_pos + t)[:, None],
                                       kv_cache=cache,
-                                      attn_impl=self.attn_impl)
+                                      attn_impl=self.attn_impl, mesh=mesh)
                 forwards += 1
                 tok = _select_token(lg[:, 0].float(), generator,
                                     opts.temperature, opts.top_p)
@@ -390,7 +402,8 @@ class ServingEngine:
         logits = _prefill_last_logits(self.model.tree(), self.cfg, ids, mask,
                                       self._vision_input(pixel_values),
                                       cache_len=cache_len,
-                                      attn_impl=self.attn_impl)
+                                      attn_impl=self.attn_impl,
+                                      mesh=self.mesh)
         probs = torch.softmax(logits, dim=-1).cpu().numpy()
         sel = probs[:, np.asarray(candidate_ids)]
         return sel / sel.sum(axis=-1, keepdims=True)

@@ -10,7 +10,7 @@ tree quantizes on the card.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -39,11 +39,16 @@ def weight_quantizer(bits: int, group: int = DEFAULT_GROUP) -> Callable:
 
 
 def quantize_vlm_params(params: Dict[str, Any], bits: int = 8,
-                        group: int = DEFAULT_GROUP) -> Dict[str, Any]:
+                        group: Optional[int] = None) -> Dict[str, Any]:
     """The VLM tree with its decoder's matmul weights and lm_head quantized
-    (``bits`` 8 or 4; ``group`` applies to int4). A new tree is returned;
-    the input's dense leaves are freed once the caller drops it."""
-    qfn = weight_quantizer(bits, group)
+    (``bits`` 8 or 4; ``group``, int4 only, defaults to ``DEFAULT_GROUP``).
+    A new tree is returned; the input's dense leaves are freed once the
+    caller drops it."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if group is not None and bits != 4:
+        raise ValueError("group is only meaningful for bits=4")
+    qfn = weight_quantizer(bits, DEFAULT_GROUP if group is None else group)
     llm = dict(params["llm"])
     layers = dict(llm["layers"])
     for key in QUANT_KEYS:

@@ -75,7 +75,10 @@ def _spec_bf16_oom_risk(params, hbm_bytes: Optional[float] = None) -> bool:
     q/k/v weights (what XLA materializes for the chunked verify dot) over
     95% of the device memory. The JAX package's formula, kept so that the
     same trees get the same answer. The memory is the card's where the
-    weights lie on one, else 16e9 bytes (a 16 GB TPU v5e)."""
+    weights lie on one, else 16e9 bytes (a 16 GB TPU v5e). Bytes are one
+    device's: a tree from ``parallel.shard_params`` holds only this rank's
+    blocks, so its leaves count one rank's share, as JAX counts one
+    device's shard of a sharded array."""
     layers = params.get("llm", {}).get("layers", {}) if isinstance(
         params, dict) else {}
     wq = layers.get("wq")
@@ -650,6 +653,9 @@ class SpeculativeEngine(ServingEngine):
         super().__init__(*args, **kwargs)
         if self.options.temperature != 0.0:
             raise ValueError("SpeculativeEngine is greedy-only")
+        if self.mesh is not None:
+            raise ValueError("SpeculativeEngine does not run on a mesh yet; "
+                             "serve sharded params with ServingEngine")
         self.draft_k = draft_k
         self.draft_layers = draft_layers
         self.prefix_tail = prefix_tail

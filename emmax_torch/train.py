@@ -1,5 +1,5 @@
-"""Emma-X VLA fine-tuning on one GPU (PyTorch): the port of
-``vla-scripts/train.py``.
+"""Emma-X VLA fine-tuning (PyTorch): the port of ``vla-scripts/train.py``,
+on one GPU or on several under ``torch.distributed.run``.
 
 The same config surface (``--vla.type <id>`` plus dotted overrides), run
 directory (``config.json`` and ``dataset_statistics.json`` sidecars,
@@ -11,25 +11,37 @@ one. Weights are random from ``--seed``, or, with
 ``--pretrained_checkpoint``, a reference Prismatic ``.pt`` converted into
 fp32 masters (when not resuming).
 
+Under ``python -m torch.distributed.run --nproc_per_node N`` each process
+drives one card: ``--vla.train_strategy`` picks the mesh
+(``fsdp-full-shard`` (1, N, 1), ``fsdp-shard-grad-op``, ``ddp`` (N, 1,
+1)), the params are sharded by the JAX package's rules
+(``parallel.shard_params``), each data rank loads its own rows of the
+global batch, and rank 0 logs and writes the run directory.
+
     python -m emmax_torch.train \\
         --vla.type prism-dinosiglip-224px+mx-moveonly-moveguided-single-policy \\
         --data_root_dir data/gcot --frames_dir data/frames --run_root_dir runs
     python -m emmax_torch.train --smoke_test true --device cpu \\
         --vla.max_steps 2 --run_root_dir /tmp/smoke
+    python -m torch.distributed.run --nproc_per_node 8 -m emmax_torch.train \\
+        --vla.train_strategy fsdp-full-shard --smoke_test true \\
+        --vla.global_batch_size 8 --vla.max_steps 2 --run_root_dir runs
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import sys
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
 
 from emmax_torch.conf import VLAConfig, config_to_dict, parse_config
+from emmax_torch.overwatch import initialize_overwatch
 
-log = logging.getLogger("emmax_torch.train")
+log = initialize_overwatch("emmax_torch.train")
 
 
 @dataclass
@@ -71,7 +83,7 @@ def initial_params(cfg: TrainConfig, vlm_cfg, device):
     if cfg.pretrained_checkpoint is not None and not cfg.is_resume:
         from emmax_torch.models.load import convert_prismatic_pt
 
-        log.info("starting from %s", cfg.pretrained_checkpoint)
+        log.info(f"starting from {cfg.pretrained_checkpoint}")
         return convert_prismatic_pt(cfg.pretrained_checkpoint, vlm_cfg,
                                     torch.float32, device)
     from emmax_torch.models.vlm import init_vlm_params
@@ -94,6 +106,11 @@ def main(cfg: TrainConfig):
     from emmax_torch.models.registry import MODEL_REGISTRY
     from emmax_torch.models.vlm import tiny_vlm_config
     from emmax_torch.ops.image import ImageTransformConfig
+    from emmax_torch.parallel import (initialize_distributed, make_mesh,
+                                      shard_params)
+    from emmax_torch.parallel.mesh import strategy_to_mesh_shape
+    from emmax_torch.parallel.sharding import (data_extent, data_index,
+                                               mesh_device)
     from emmax_torch.serving.engine import resolve_device
     from emmax_torch.training.checkpointing import (CheckpointManager,
                                                     write_sidecars)
@@ -112,7 +129,24 @@ def main(cfg: TrainConfig):
 
     device = resolve_device(cfg.device)
     vla = cfg.vla
-    run_id = f"{vla.vla_id}+n1+b{vla.global_batch_size}+x{cfg.seed}"
+    # a process group when torchrun (or the JAX package's variables) asks
+    # for one; then one card per process and a mesh over all of them
+    initialize_distributed(device_type=device.type)
+    mesh = None
+    world = 1
+    if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+        hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        shape = strategy_to_mesh_shape(vla.train_strategy, world, hosts)
+        mesh = make_mesh(shape, device_type=device.type)
+        device = mesh_device(mesh)
+        log.info(f"mesh {dict(zip(mesh.mesh_dim_names, shape))}")
+    if vla.expected_world_size not in (-1, world):
+        log.warning(f"expected_world_size={vla.expected_world_size} but "
+                    f"{world} processes; proceeding with {world}")
+    writer = mesh is None or mesh.get_rank() == 0
+    run_id = (f"{vla.vla_id}+n{max(world // 8, 1)}+b{vla.global_batch_size}"
+              f"+x{cfg.seed}")
     if cfg.run_id_note:
         run_id += f"--{cfg.run_id_note}"
     run_dir = Path(cfg.run_root_dir) / run_id
@@ -159,11 +193,15 @@ def main(cfg: TrainConfig):
             raise ValueError("need --frames_dir")
     dataset = GCOTDataset(items, action_tokenizer, tokenizer, frame_source,
                           data_mix=vla.data_mix, mask_inst=cfg.mask_inst)
+    # each data rank loads its own rows; ranks that differ only on the
+    # tensor axis load the same ones
+    n_data = data_extent(mesh) if mesh is not None else 1
     loader = BatchLoader(
-        dataset, max(vla.global_batch_size, 1),
+        dataset, max(vla.global_batch_size // n_data, 1),
         lambda s: collate_train(s, tokenizer.pad_id,
                                 max_length=vlm_cfg.llm.max_seq_len),
-        seed=cfg.seed)
+        seed=cfg.seed, num_shards=n_data,
+        shard_index=data_index(mesh) if mesh is not None else 0)
 
     # --- params + optimizer ---
     params = initial_params(cfg, vlm_cfg, device)
@@ -177,13 +215,15 @@ def main(cfg: TrainConfig):
         weight_decay=vla.weight_decay, max_grad_norm=vla.max_grad_norm,
         lr_scheduler_type=vla.lr_scheduler_type, total_steps=total_steps,
         warmup_ratio=vla.warmup_ratio, stage=stage)
+    if mesh is not None:
+        params = shard_params(params, mesh)
     state = create_train_state(params, tx)
 
-    ckpt = CheckpointManager(run_dir)
+    ckpt = CheckpointManager(run_dir, mesh=mesh)
     start_step, start_epoch = 0, 0
     if cfg.auto_resume and not cfg.is_resume and ckpt.latest() is not None:
-        log.info("auto-resuming from %s (disable with --auto_resume false)",
-                 ckpt.latest().name)
+        log.info(f"auto-resuming from {ckpt.latest().name} (disable with "
+                 "--auto_resume false)")
         cfg.is_resume = True
     if cfg.is_resume:
         state = ckpt.restore(device=device)
@@ -202,13 +242,14 @@ def main(cfg: TrainConfig):
                          "arch_specifier": vlm_cfg.arch_specifier,
                          "image_resize_strategy": "resize-naive"}
         blob["text_config"] = {"vocab_size": vlm_cfg.llm.vocab_size}
-    write_sidecars(run_dir, blob, dataset_statistics)
+    if writer:
+        write_sidecars(run_dir, blob, dataset_statistics)
 
     # --- train ---
     compute_dtype = (torch.bfloat16 if vla.enable_mixed_precision_training
                      and not cfg.smoke_test else torch.float32)
     step_fn = make_train_step(
-        vlm_cfg, tx, attn_impl=cfg.attn_impl,
+        vlm_cfg, tx, mesh=mesh, attn_impl=cfg.attn_impl,
         remat=(False if (not vla.enable_gradient_checkpointing
                          or vla.remat_policy == "none")
                else "dots" if vla.remat_policy == "dots" else True),
@@ -217,24 +258,26 @@ def main(cfg: TrainConfig):
         freeze_mask=trainable_mask(state.params, stage),
         action_vocab_size=tokenizer.vocab_size)
     metrics = VLADiscreteMetrics(build_trackers(
-        cfg.trackers.split(","), run_id, run_dir,
+        cfg.trackers.split(",") if writer else [], run_id, run_dir,
         hparams=config_to_dict(vla)))
     for t in metrics.trackers:
         t.write_hyperparameters(config_to_dict(vla))
     eval_fn = make_eval_fn(vlm_cfg, transforms=transforms,
                            attn_impl=cfg.attn_impl,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, mesh=mesh)
     state = run_discrete_vla_training(
         vlm_cfg=vlm_cfg, state=state, train_step=step_fn,
-        loader=PrefetchingLoader(loader, device), metrics=metrics,
+        loader=PrefetchingLoader(loader, device, mesh=mesh),
+        metrics=metrics,
         loop_cfg=LoopConfig(epochs=vla.epochs, max_steps=vla.max_steps,
                             eval_every=cfg.eval_interval,
                             save_every=cfg.save_interval),
-        device=device, tokenizer=tokenizer, solver=Solver(action_tokenizer),
+        device=device, mesh=mesh, tokenizer=tokenizer,
+        solver=Solver(action_tokenizer),
         eval_fn=eval_fn, ckpt_manager=ckpt, lr_fn=schedule,
         start_step=start_step, start_epoch=start_epoch)
     metrics.finalize()
-    log.info("done; final step %d; run dir %s", state.step, run_dir)
+    log.info(f"done; final step {state.step}; run dir {run_dir}")
     return state
 
 

@@ -8,6 +8,12 @@ package's (and the reference's): ``checkpoints/step-XXXXXX-epoch-XX-
 loss=X.XXXX`` beside ``config.json`` and ``dataset_statistics.json``. An
 imported checkpoint (``models.load.save_pretrained``) is named
 ``step-XXXXXX`` and holds the parameters alone.
+
+Under a mesh (``CheckpointManager(run_dir, mesh=mesh)``) the state holds
+each rank's blocks: a save gathers the full tree leaf by leaf, rank 0
+writes it in the same format (so ``models.load.load_vla`` reads it), and
+a restore reads the full tree on every rank and keeps each rank's
+blocks. Both end at a barrier.
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from emmax_torch.parallel.distributed import barrier
+from emmax_torch.parallel.sharding import (gather_params,
+                                           param_partition_specs, shard_leaf,
+                                           shard_params)
 from emmax_torch.training.train_state import TrainState
 
 log = logging.getLogger(__name__)
@@ -33,27 +43,45 @@ STATE_FILE = "state.pt"
 
 
 class CheckpointManager:
-    def __init__(self, run_dir, max_to_keep: Optional[int] = None) -> None:
+    def __init__(self, run_dir, max_to_keep: Optional[int] = None,
+                 mesh=None) -> None:
         self.run_dir = Path(run_dir).absolute()
         self.ckpt_dir = self.run_dir / "checkpoints"
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
+
+    def _writer(self) -> bool:
+        """The rank that writes (rank 0; the only one without a mesh)."""
+        return self.mesh is None or self.mesh.get_rank() == 0
 
     def save(self, state: TrainState, *, step: int, epoch: int,
              loss: float) -> Path:
         name = f"step-{step:06d}-epoch-{epoch:02d}-loss={loss:.4f}"
         path = self.ckpt_dir / name
         if path.exists():
-            # a periodic and a final save can land on one step: skip
+            # a periodic and a final save can land on one step: skip (every
+            # rank sees the directory before rank 0 can write: the gathers
+            # below wait for all of them)
             log.info("checkpoint %s already exists; skipping", name)
             return path
-        tmp = path.with_name(name + ".tmp")
-        tmp.mkdir(parents=True, exist_ok=True)
-        torch.save({"step": state.step, "params": state.params,
-                    "opt_state": state.opt_state}, tmp / STATE_FILE)
-        tmp.rename(path)
-        log.info("saved checkpoint %s", name)
-        self._gc()
+        params, opt_state = state.params, state.opt_state
+        if self.mesh is not None:
+            kw = dict(device="cpu", keep=self._writer())
+            params = gather_params(params, self.mesh, **kw)
+            opt_state = {**opt_state,
+                         "mu": gather_params(opt_state["mu"], self.mesh, **kw),
+                         "nu": gather_params(opt_state["nu"], self.mesh, **kw)}
+        if self._writer():
+            tmp = path.with_name(name + ".tmp")
+            tmp.mkdir(parents=True, exist_ok=True)
+            torch.save({"step": state.step, "params": params,
+                        "opt_state": opt_state}, tmp / STATE_FILE)
+            tmp.rename(path)
+            log.info("saved checkpoint %s", name)
+            self._gc()
+        if self.mesh is not None:
+            barrier("checkpoint save")
         return path
 
     def wait(self) -> None:
@@ -79,12 +107,27 @@ class CheckpointManager:
 
     def restore(self, path: Optional[Path] = None,
                 device="cpu") -> TrainState:
-        """The saved state, its tensors on ``device``."""
+        """The saved state, its tensors on ``device`` (under a mesh: each
+        rank's blocks on its own device)."""
+        if self.mesh is not None:
+            barrier("checkpoint restore")
         path = path or self.latest()
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {self.ckpt_dir}")
-        blob = torch.load(Path(path) / STATE_FILE, map_location=device,
-                          weights_only=True)
+        if self.mesh is None:
+            blob = torch.load(Path(path) / STATE_FILE, map_location=device,
+                              weights_only=True)
+        else:
+            blob = torch.load(Path(path) / STATE_FILE, map_location="cpu",
+                              weights_only=True, mmap=True)
+            specs = param_partition_specs(blob["params"], self.mesh)
+            flat = list(specs.values())
+            blob["params"] = shard_params(blob["params"], self.mesh, specs)
+            for key in ("mu", "nu"):
+                blob["opt_state"][key] = [
+                    None if m is None else shard_leaf(m, s, self.mesh)
+                    for m, s in zip(blob["opt_state"][key], flat)]
+            barrier("checkpoint restore")
         log.info("restored checkpoint %s", Path(path).name)
         return TrainState(step=blob["step"], params=blob["params"],
                           opt_state=blob["opt_state"])

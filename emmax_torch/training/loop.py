@@ -7,12 +7,15 @@
 - checkpoints every ``save_every`` steps, at ``max_steps`` and at each
   epoch's end (with the optimizer state),
 - metrics committed per step and pushed to the trackers.
+
+Under a mesh every rank runs the loop on its own rows
+(``parallel.shard_batch``); the step's metrics are the global batch's,
+the Solver evaluates each rank's rows, and rank 0 logs and writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Callable, Optional
 
 import numpy as np
@@ -20,11 +23,13 @@ import torch
 
 from emmax_torch.data.prefetch import to_device
 from emmax_torch.models.llama import IGNORE_INDEX
-from emmax_torch.models.tree import tree_map
 from emmax_torch.models.vlm import VLMConfig, vlm_forward
+from emmax_torch.overwatch import initialize_overwatch
+from emmax_torch.parallel.sharding import shard_batch
 from emmax_torch.training.metrics import VLADiscreteMetrics
+from emmax_torch.training.train_step import cast_params
 
-log = logging.getLogger(__name__)
+log = initialize_overwatch(__name__)
 
 
 @dataclasses.dataclass
@@ -37,13 +42,13 @@ class LoopConfig:
 
 
 def make_eval_fn(cfg: VLMConfig, *, transforms=None, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.bfloat16):
-    """Teacher-forced greedy predictions [B, F] for a batch."""
+                 compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
+    """Teacher-forced greedy predictions [B, F] for a batch (this rank's
+    rows under a ``mesh``)."""
 
     @torch.no_grad()
     def eval_fn(params, batch):
-        cparams = tree_map(lambda a: a.to(compute_dtype)
-                           if a.is_floating_point() else a, params)
+        cparams = cast_params(params, compute_dtype)
         if "pixel_values" in batch:
             pv = batch["pixel_values"]
         else:
@@ -53,7 +58,7 @@ def make_eval_fn(cfg: VLMConfig, *, transforms=None, attn_impl: str = "auto",
                   preprocess_for_towers(batch["images"], transforms).items()}
         logits, _, _ = vlm_forward(cparams, cfg, batch["input_ids"], pv,
                                    mask=batch["attention_mask"],
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl, mesh=mesh)
         return logits.float().argmax(dim=-1)
 
     return eval_fn
@@ -83,13 +88,14 @@ def run_discrete_vla_training(*, vlm_cfg: VLMConfig, state,
                               train_step: Callable, loader,
                               metrics: VLADiscreteMetrics,
                               loop_cfg: LoopConfig, device="cpu",
-                              tokenizer=None, solver=None,
+                              mesh=None, tokenizer=None, solver=None,
                               eval_fn: Optional[Callable] = None,
                               ckpt_manager=None,
                               lr_fn: Optional[Callable[[int], float]] = None,
                               start_step: int = 0, start_epoch: int = 0):
     """Returns the final state. ``loader.epoch(e)`` yields collated
-    batches (numpy, or tensors already on ``device``)."""
+    batches (numpy, or tensors already on ``device``); under a ``mesh``,
+    this rank's rows, placed with ``shard_batch``."""
     step = start_step
     final_loss = float("nan")
     for epoch in range(start_epoch, loop_cfg.epochs):
@@ -97,7 +103,8 @@ def run_discrete_vla_training(*, vlm_cfg: VLMConfig, state,
             batch = {k: v for k, v in batch.items()
                      if k != "multimodal_indices"}      # host-side only
             labels = batch["labels"]
-            device_batch = to_device(batch, device)
+            device_batch = (to_device(batch, device) if mesh is None
+                            else shard_batch(batch, mesh))
             state, m = train_step(state, device_batch)
             step += 1
             names = sorted(m)
@@ -129,8 +136,8 @@ def run_discrete_vla_training(*, vlm_cfg: VLMConfig, state,
                 metrics.commit(solver_action_accuracy=float(np.mean(a_acc)),
                                solver_l1=float(np.mean(l1)),
                                solver_relative_l1=float(np.mean(rel_l1)))
-                log.info("[solver eval @ %d] acc=%.3f L1=%.4f", step,
-                         np.mean(a_acc), np.mean(l1))
+                log.info(f"[solver eval @ {step}] acc={np.mean(a_acc):.3f} "
+                         f"L1={np.mean(l1):.4f}")
 
             if ckpt_manager is not None and step % loop_cfg.save_every == 0:
                 ckpt_manager.save(state, step=step, epoch=epoch,

@@ -17,6 +17,10 @@ arithmetic rather than ``torch.optim``'s:
 
 Unlike optax the update is applied in place (params and moments), so a
 7B fp32 master tree is never copied.
+
+Under a mesh (``parallel``) the params, gradients and moments are each
+rank's blocks: AdamW and the masks act on the blocks as they are, and the
+global norm counts every element of the global tree once.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from typing import Any, Callable, Dict, Union
 import torch
 
 from emmax_torch.models.tree import leaves_with_path, map_with_path
+from emmax_torch.parallel.gather import sum_of_squares
+from emmax_torch.parallel.sharding import spec_of, with_spec
 
 Params = Any
 Mask = Union[float, torch.Tensor]
@@ -172,19 +178,22 @@ class Optimizer:
 
     def init(self, params: Params) -> Dict[str, Any]:
         leaves = [p for _, p in leaves_with_path(params)]
-        mu = [torch.zeros_like(p) if t else None
-              for p, t in zip(leaves, self.train)]
-        nu = [torch.zeros_like(p) if t else None
-              for p, t in zip(leaves, self.train)]
+        def zeros(p, t):   # a moment is placed as its param is
+            return with_spec(torch.zeros_like(p), spec_of(p)) if t else None
+
+        mu = [zeros(p, t) for p, t in zip(leaves, self.train)]
+        nu = [zeros(p, t) for p, t in zip(leaves, self.train)]
         return {"count": 0, "mu": mu, "nu": nu}
 
     @torch.no_grad()
     def update(self, params: Params, grads: Params,
-               opt_state: Dict[str, Any]) -> None:
+               opt_state: Dict[str, Any], mesh=None) -> None:
+        """``mesh``: params, grads and moments are this rank's blocks (the
+        clip then reads the global norm, the same on every rank)."""
         leaves = [p for _, p in leaves_with_path(params)]
         gs = [_scaled(g, m) for (_, g), m in zip(leaves_with_path(grads),
                                                  self.mask)]
-        norm = global_norm(gs)
+        norm = global_norm(gs, mesh, [spec_of(p) for p in leaves])
         keep = norm < self.max_grad_norm   # on the device: no host sync
         k = opt_state["count"]
         lr = self.schedule(k)
@@ -204,13 +213,14 @@ class Optimizer:
         opt_state["count"] = k + 1
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in fp32."""
-    total = None
-    for g in leaves:
-        sq = g.float().square().sum()
-        total = sq if total is None else total + sq
-    return total.sqrt()
+def global_norm(leaves, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in fp32. Under a
+    ``mesh`` the leaves are blocks placed by ``specs`` and each element of
+    the global tree counts once (``parallel.gather.sum_of_squares``)."""
+    leaves = list(leaves)
+    if specs is None:
+        specs = [None] * len(leaves)
+    return sum_of_squares(leaves, specs, mesh).sqrt()
 
 
 def make_optimizer(params: Params, *, learning_rate: float,

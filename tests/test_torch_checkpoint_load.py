@@ -113,16 +113,39 @@ def test_checkpoint_dirs_load_like_jax(dirs, fmt):
     assert tt == jt and len(ta) == len(ja)
 
 
-@pytest.mark.parametrize("quantize", ["int8", "int4"])
-def test_quantized_load_equals_jax_host_quantizer(dirs, quantize):
+QUANTIZE_KW = [{"quantize": "int8"}, {"quantize": "int4"},
+               {"quantize_int8": True},
+               {"quantize": "int4", "quantize_int8": True}]
+
+
+@pytest.mark.parametrize("kw", QUANTIZE_KW,
+                         ids=["int8", "int4", "quantize_int8",
+                              "explicit_quantize_wins"])
+def test_quantized_load_equals_jax_host_quantizer(dirs, kw):
     """``quantize=`` from a checkpoint: the same bytes as JAX's host
-    quantizer (int4 scales as bf16 in both)."""
+    quantizer (int4 scales as bf16 in both). ``quantize_int8=True`` is
+    JAX's back-compat spelling of ``quantize="int8"``, and an explicit
+    ``quantize`` wins over it, in both packages."""
     _, _, paths = dirs
     _, tparams, _, _, _ = t_load.load(paths["hf"], dtype=torch.float32,
-                                      device="cpu", quantize=quantize)
-    _, jparams, _, _, _ = j_load.load(paths["hf"], dtype=jnp.float32,
-                                      quantize=quantize)
+                                      device="cpu", **kw)
+    _, jparams, _, _, _ = j_load.load(paths["hf"], dtype=jnp.float32, **kw)
     assert_tree_equal(tparams, jparams)
+    key = "q4" if kw.get("quantize") == "int4" else "q8"
+    assert key in tparams["llm"]["layers"]["wq"]
+
+
+def test_load_vla_takes_quantize_int8_as_jax_does(dirs):
+    """``load_vla(path, quantize_int8=True)`` (JAX's
+    ``tests/test_vla_api.py`` calls it so) loads the int8 tree."""
+    _, _, paths = dirs
+    tvla = t_load.load_vla(paths["pt"], dtype=torch.float32, device="cpu",
+                           quantize_int8=True)
+    jvla = j_load.load_vla(paths["pt"], dtype=jnp.float32,
+                           quantize_int8=True)
+    tparams = tvla.engine.model.tree()
+    assert_tree_equal(tparams, jvla.engine.params)
+    assert "q8" in tparams["llm"]["layers"]["wq"]
 
 
 @pytest.mark.parametrize("shape", ["model", "vla", "flat"])

@@ -749,3 +749,74 @@ def test_safetensors_reader_onto_the_card(dev, tmp_path):
         for k, v in got.items():
             assert v.device.type == "cuda"
             assert torch.equal(v.cpu(), sd[k]), k
+
+
+def test_world_size_one_nccl_mesh_step_equals_unwrapped(dev):
+    """A NCCL process group of one rank and its (1, 1, 1) mesh on the card:
+    ``shard_params`` copies no leaf, and a train step through the mesh
+    (the flash kernels, fp32) gives the unwrapped step's loss, grad norm
+    and params bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from emmax_torch.models.tree import leaves_with_path
+    from emmax_torch.models.vlm import init_vlm_params, tiny_vlm_config
+    from emmax_torch.parallel import (initialize_distributed, make_mesh,
+                                      shard_batch, shard_params)
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer)
+    from emmax_torch.training.train_step import make_train_step
+
+    cfg = tiny_vlm_config()
+    rng = np.random.default_rng(0)
+    B, L = 4, 12
+    ids = rng.integers(3, 512, size=(B, L))
+    ids[:, 0] = 1
+    labels = ids.copy()
+    labels[:, :4] = -100
+    batch = {"input_ids": torch.from_numpy(ids).to(dev),
+             "attention_mask": torch.ones(B, L, dtype=torch.bool,
+                                          device=dev),
+             "labels": torch.from_numpy(labels).to(dev),
+             "pixel_values": {n: torch.from_numpy(rng.normal(
+                 size=(B, v.img_size, v.img_size, 3)).astype(
+                     np.float32)).to(dev) for n, v in cfg.vision}}
+
+    def params():
+        g = torch.Generator(dev).manual_seed(0)
+        return init_vlm_params(g, cfg, torch.float32, dev)
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh((1, 1, 1))
+        results = []
+        for m in (None, mesh):
+            p = params()
+            tx, _ = make_optimizer(p, learning_rate=1e-3, weight_decay=0.0,
+                                   max_grad_norm=1.0,
+                                   lr_scheduler_type="constant",
+                                   total_steps=10, stage="vla-full-train")
+            if m is not None:
+                placed = shard_params(p, m)
+                assert all(a.data_ptr() == b.data_ptr() for (_, a), (_, b)
+                           in zip(leaves_with_path(p),
+                                  leaves_with_path(placed)))
+                p = placed
+            step = make_train_step(cfg, tx, attn_impl="cuda", remat=True,
+                                   compute_dtype=torch.float32, mesh=m)
+            b = batch if m is None else shard_batch(batch, m)
+            state, metrics = step(create_train_state(p, tx), b)
+            results.append(({k: v.item() for k, v in metrics.items()},
+                            [t.cpu() for _, t in
+                             leaves_with_path(state.params)]))
+    finally:
+        dist.destroy_process_group()
+    assert results[0][0] == results[1][0]
+    for a, b in zip(results[0][1], results[1][1]):
+        assert torch.equal(a, b)

@@ -45,7 +45,13 @@ def test_import_loads_no_jax():
             "emmax_torch.models.safetensors_io", "emmax_torch.models.convert",
             "emmax_torch.conf.models", "emmax_torch.extern.hf_facade",
             "emmax_torch.convert_weights", "emmax_torch.generate",
-            "emmax_torch.data.pretrain"} <= set(MODULES)
+            "emmax_torch.data.pretrain", "emmax_torch.overwatch",
+            "emmax_torch.parallel", "emmax_torch.parallel.mesh",
+            "emmax_torch.parallel.distributed",
+            "emmax_torch.parallel.sharding",
+            "emmax_torch.parallel.constraints",
+            "emmax_torch.parallel.gather",
+            "emmax_torch.ops.ring_attention"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_jax_package():

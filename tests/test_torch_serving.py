@@ -270,3 +270,29 @@ def test_modules_hold_the_weights_and_match_the_functions(llama_setup):
     proj = {"layers": [{"kernel": torch.randn(5, 7), "bias": torch.randn(7)}]}
     torch.testing.assert_close(Projector(proj)(torch.ones(2, 5)),
                                projector_forward(proj, torch.ones(2, 5)))
+
+
+def test_quantize_group_is_int4_only_as_in_jax():
+    """``group`` with ``bits=8`` raises JAX's ValueError (it was ignored),
+    as does a bit width other than 4 or 8; ``group`` at int4 sets the
+    group as in JAX's quantizer."""
+    cfg = j_vlm.tiny_vlm_config(vocab_size=512)
+    params = jax.tree_util.tree_map(
+        np.asarray, j_vlm.init_vlm_params(jax.random.PRNGKey(0), cfg))
+    tparams = params_from_numpy(params)
+    for quantize in (t_quant.quantize_vlm_params, j_quant.quantize_vlm_params):
+        with pytest.raises(ValueError, match="group is only meaningful"):
+            quantize(tparams if quantize is t_quant.quantize_vlm_params
+                     else params, bits=8, group=64)
+        with pytest.raises(ValueError, match="bits must be 4 or 8"):
+            quantize(tparams if quantize is t_quant.quantize_vlm_params
+                     else params, bits=5)
+    got = t_quant.quantize_vlm_params(tparams, bits=4, group=32)
+    want = j_quant.quantize_vlm_params(
+        jax.tree_util.tree_map(jnp.asarray, params), bits=4, group=32)
+    wq, jwq = got["llm"]["layers"]["wq"], want["llm"]["layers"]["wq"]
+    assert wq["scale"].shape[-2] == cfg.llm.dim // 32
+    np.testing.assert_array_equal(wq["q4"].numpy(), np.asarray(jwq["q4"]))
+    np.testing.assert_array_equal(
+        wq["scale"].view(torch.int16).numpy(),
+        np.asarray(jwq["scale"]).view(np.int16))
