@@ -92,6 +92,23 @@ Phases, each raising on failure (the script then exits non-zero):
    accounting (the launch gate counts by dtype: every launch bf16); then steps under ``attn_impl="cuda_fused"`` (the dK/dV
    kernel's dQ partials, no dQ kernel; launches checked) and "cuda" in
    turns, and one profiled fused step;
+7b. ``pretrain``: ``python -m emmax_torch.pretrain`` driven in-process
+   (``pretrain.build`` with an ``image_loader`` of seeded 375x500 uint8
+   frames, then ``pretrain.run``) over a LLaVA-format chat JSON of 48
+   examples, every 4th text-only. The align stage at full width, batch 16,
+   2 epochs, ``--cache_vision``: the split-modality batches are
+   modality-pure and cover every example each epoch; the tower encodes
+   equal the count the images' content keys predict (epoch 1: none, the
+   towers released); the per-step losses equal an uncached run's over
+   the same batches from the same state (``PT_CACHE_RTOL``); the loader
+   reads the state's tower tensors (``data_ptr``) and keeps no device
+   bytes after the run; launches per step by dtype (cached: the bf16
+   forward twice per layer, dQ and dK/dV once; uncached: plus the towers'
+   49) and per encode (49). Then the finetune stage for 2 steps at
+   vla-train's cut (``VLA_LAYERS``): the first step's loss against the
+   plain fp32 loss (``LOSS_RTOL``) and its launches. Step, encode and
+   checkpoint times, cache bytes and device peaks are printed; each
+   checkpoint is removed after its save is measured;
 8. the paged-attention kernel (in phase 3's call, so ``--kernels-only``
    runs it) against its plain version at the batched engines' shape (B6,
    H32, hd 128, page size 128, 6 pages per row, ragged lengths 1 / 127 /
@@ -117,9 +134,10 @@ Phases, each raising on failure (the script then exits non-zero):
    (6 slots, cache 1024, burst 32); per run aggregate tokens/s after a
    warm-up run, admission ms, median burst ms, peak memory, each
    kernel's launches, and the device's busy share of one profiled burst;
-11. ``vla-train``: full width with the decoder cut to 8 of 32 layers (a
-   cut of memory: fp32 master, gradients and AdamW moments of a 32-layer
-   decoder do not fit one card), GCOT records and synthetic frames
+11. ``vla-train``: full width with the decoder cut to ``VLA_LAYERS`` (4)
+   of 32 layers (a cut of memory: fp32 master, gradients and AdamW moments
+   of a 32-layer decoder do not fit one card; 8 layers until the pretrain
+   phase's checkpoints needed the time), GCOT records and synthetic frames
    through ``GCOTDataset`` -> ``collate_train`` -> the prefetching loader
    -> ``run_discrete_vla_training`` with AdamW over the LLM and the
    projector, a Solver eval, and a checkpoint saved to a temporary
@@ -161,7 +179,7 @@ Phases, each raising on failure (the script then exits non-zero):
    grad norm, projector gradient and update within ``MESH_RTOL`` (0
    expected), the same launches (113 / 32 / 32, all bf16), the wrapped
    step's device peak minus the unwrapped one's, step ms in turns;
-   vla-train's 8-layer cut for ``MESH_VLA_STEPS`` steps through
+   vla-train's ``VLA_LAYERS`` cut for ``MESH_VLA_STEPS`` steps through
    ``run_discrete_vla_training(mesh=)`` against the unwrapped run's
    losses, with the mesh's checkpoint save (rank 0 writes the gathered
    tree) and restore (every rank's blocks) held equal to the live state;
@@ -169,7 +187,7 @@ Phases, each raising on failure (the script then exits non-zero):
    the unsharded engine's tokens and launches (49 fp32 + 32 bf16 flash
    forwards). The group is destroyed at the end.
 
-Phases 4b, 5b, 10b, 7, 11, 12 and 13 run after phase 10 (4b with phase 4,
+Phases 4b, 5b, 10b, 7, 7b, 11, 12 and 13 run after phase 10 (4b with phase 4,
 5b with phase 5); ``--kernels-only`` skips them. The line before the last is the
 card's name and power limit; the one before it a JSON object with one
 entry per kernel; the last line is
@@ -213,12 +231,12 @@ ALIGN_STEPS = 3                # timed steps after one warm-up step
 # align7b parity, kernels vs plain from one state: the loss, and the
 # projector gradient relative to its largest entry
 LOSS_RTOL, GRAD_RTOL = 1e-2, 2e-2
-VLA_LAYERS = 8                 # vla-train: decoder cut to 8 of 32 layers
+VLA_LAYERS = 4                 # vla-train: decoder cut to 4 of 32 layers
 VLA_B, VLA_STEPS = 4, 3
 # vla-full-train-fp32 (the same cut and batch): optimizer steps, the first
 # counted; kernels vs plain in fp32 from one state: the loss, relative
 # (one fp32 forward, sums in another order), and each group's gradient
-# relative to its largest entry (the backward through 8 decoder layers and
+# relative to its largest entry (the backward through the decoder layers and
 # 23 / 26 tower blocks compounds the ~1e-6 of each attention call)
 FULL_STEPS = 3
 FULL_LOSS_RTOL, FULL_GRAD_RTOL = 1e-5, 1e-3
@@ -239,6 +257,17 @@ SPEC_KW = dict(draft_k=12, prefix_tail=TAIL, quantized_cache=True,
 SPEC_W_LINEAR, SPEC_W_TREE = 13, 43   # verifier widths: 12 + 1, 1 + 7 + 35
 SPEC_PROFILE_FRAME = 2
 FREE_FRAMES = 3                # the free runs' closed-loop frames
+# pretrain (``python -m emmax_torch.pretrain``): a LLaVA-format chat JSON of
+# PT_EXAMPLES, every PT_TEXT_EVERY-th text-only; seeded uint8 frames of
+# PT_FRAME (the typical LAION / COCO size of LLaVA-558k); the align stage
+# at full width for PT_EPOCHS epochs at batch PT_BATCH (the reference's
+# per-device batch; its global batch is 256) with --cache_vision, then
+# PT_FT_STEPS finetune steps at the vla-train cut (VLA_LAYERS)
+PT_EXAMPLES, PT_TEXT_EVERY, PT_FRAME = 48, 4, (375, 500, 3)
+PT_BATCH, PT_EPOCHS, PT_FT_STEPS = 16, 2, 2
+# an uncached align run against the cached one: the same per-step losses
+# (the loader encodes as the step does: bit-equal expected)
+PT_CACHE_RTOL = 1e-6
 # multigpu: wrapped against unwrapped at world size 1, relative (the same
 # kernels on the same tensors: 0 expected); vla-train steps through the mesh
 MESH_RTOL = 1e-6
@@ -2453,6 +2482,321 @@ def align7b_phase(dev, kernels):
     return out
 
 
+def _launches(kernels) -> dict:
+    return {k.name: dict(k.launches_by) for k in kernels}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {name: {dt: n - before[name].get(dt, 0)
+                   for dt, n in by.items() if n != before[name].get(dt, 0)}
+            for name, by in after.items()}
+
+
+def pretrain_chat(root) -> None:
+    """The LLaVA-format chat JSON of the pretrain phase (the text of
+    ``make_synthetic_chat_json``, which needs OpenCV to write its JPEGs)."""
+    examples = []
+    for i in range(PT_EXAMPLES):
+        ex = {"conversations": [
+            {"from": "human", "value": f"<image>\nWhat is in image {i}?"},
+            {"from": "gpt", "value": f"A synthetic object number {i}."}]}
+        if i % PT_TEXT_EVERY:
+            ex["image"] = f"img_{i}.jpg"
+        examples.append(ex)
+    with open(root / "chat.json", "w") as f:
+        json.dump(examples, f)
+
+
+def pretrain_frames(root, rel):
+    """The datasets' ``image_loader``: a seeded uint8 frame per image name
+    (None for a text-only example)."""
+    if rel is None:
+        return None
+    i = int(rel[len("img_"):-len(".jpg")])
+    return np.random.default_rng(1000 + i).integers(0, 256, PT_FRAME,
+                                                    dtype=np.uint8)
+
+
+def _timed(record: list, fn):
+    """``fn`` with each call's seconds (ending in a device sync) appended
+    to ``record``."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        record.append(time.perf_counter() - t0)
+        return out
+
+    return wrapped
+
+
+def pretrain_phase(dev, kernels):
+    """``python -m emmax_torch.pretrain``'s align stage at full width with
+    ``--cache_vision`` against an uncached run over the same batches, then
+    its finetune stage at the vla-train cut."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from emmax_torch import pretrain as entry
+    from emmax_torch.conf import parse_config
+    from emmax_torch.data.prefetch import to_device
+    from emmax_torch.models.tree import leaves_with_path
+    from emmax_torch.models.vlm import emma_x_vlm_config, vlm_forward
+    from emmax_torch.training.train_step import cast_params
+    from emmax_torch.training.vision_cache import CachedVisionLoader
+
+    def parse(args):
+        return parse_config(entry.PretrainConfig, args, choice_fields={
+            "model": entry.ModelConfig, "dataset": entry.DatasetConfig})
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_pretrain_"))
+    try:
+        pretrain_chat(tmp)
+        common = ["--model.type", MODEL_ID, "--attn_impl", "cuda",
+                  "--run_root_dir", str(tmp / "runs"),
+                  "--dataset.dataset_root_dir", str(tmp),
+                  "--dataset.align_stage_components", '["chat.json", "."]',
+                  "--dataset.finetune_stage_components",
+                  '["chat.json", "."]']
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        p = entry.build(parse(common + [
+            "--stage", "align", "--cache_vision", "true",
+            "--model.align_global_batch_size", str(PT_BATCH),
+            "--model.align_epochs", str(PT_EPOCHS)]),
+            image_loader=pretrain_frames)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        cache, inner = p.cache, p.cache.loader
+
+        # (a) modality-pure batches, every example in each epoch
+        for epoch in range(PT_EPOCHS):
+            idx = inner.batches(epoch)
+            pure = all(len({inner.is_multimodal[i] for i in b}) == 1
+                       for b in idx)
+            if not (pure and {i for b in idx for i in b}
+                    == set(range(PT_EXAMPLES))
+                    and all(len(b) == PT_BATCH for b in idx)):
+                raise AssertionError(f"pretrain: epoch {epoch} batches "
+                                     f"{idx} are not modality-pure batches "
+                                     f"of {PT_BATCH} covering every example")
+        # (b) the encodes a content-keyed store must make, epoch by epoch
+        keys, predicted = set(), []
+        for epoch in range(PT_EPOCHS):
+            misses = 0
+            for batch in inner.epoch(epoch):
+                new = {CachedVisionLoader.key(r) for r in batch["images"]}
+                misses += bool(new - keys)
+                keys |= new
+            predicted.append(misses)
+        # (d) the loader reads the state's own tower tensors
+        shared = [a.data_ptr() == b.data_ptr() for (_, a), (_, b) in zip(
+            leaves_with_path(cache.vision),
+            leaves_with_path(p.state.params["vision"]))]
+        if not (shared and all(shared)):
+            raise AssertionError("pretrain: the vision cache holds tower "
+                                 "tensors of its own")
+
+        # the uncached run over the same batches, from the same state (only
+        # the projector and its moments change in align: kept and restored)
+        proj = [t.clone() for _, t in leaves_with_path(
+            p.state.params["projector"])]
+        opt = {k: ([None if t is None else t.clone() for t in v]
+                   if isinstance(v, list) else v)
+               for k, v in p.state.opt_state.items()}
+        state, plain_losses, plain_ms, plain_steps = p.state, [], [], []
+        for epoch in range(PT_EPOCHS):
+            for batch in inner.epoch(epoch):
+                before = _launches(kernels)
+                t0 = time.perf_counter()
+                state, m = p.train_step(state, to_device(
+                    {k: v for k, v in batch.items()
+                     if k != "multimodal_indices"}, p.device))
+                plain_losses.append(m["loss"].item())
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+                plain_steps.append(_launch_delta(before, _launches(kernels)))
+        for (_, t), t0 in zip(leaves_with_path(p.state.params["projector"]),
+                              proj):
+            t.copy_(t0)
+        for k, v in opt.items():
+            if isinstance(v, list):
+                for t, t0 in zip(p.state.opt_state[k], v):
+                    if t is not None:
+                        t.copy_(t0)
+            else:
+                p.state.opt_state[k] = v
+        del proj, opt, state
+
+        # the cached run through the entry (counts from 0 just before)
+        steps, step_s, encode_s, save_s, ckpt_bytes = [], [], [], [], []
+        train_step = p.train_step
+
+        def counted_step(state, batch):
+            before = _launches(kernels)
+            t0 = time.perf_counter()
+            out = train_step(state, batch)
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t0)
+            steps.append(_launch_delta(before, _launches(kernels)))
+            return out
+
+        save = p.ckpt.save
+
+        def timed_save(state, **kw):
+            t0 = time.perf_counter()
+            path = save(state, **kw)
+            save_s.append(time.perf_counter() - t0)
+            ckpt_bytes.append(sum(f.stat().st_size for f in path.iterdir()))
+            shutil.rmtree(path)          # one checkpoint on disk at a time
+            return path
+
+        p.train_step, p.ckpt.save = counted_step, timed_save
+        cache.encode = _timed(encode_s, cache.encode)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels:
+            k.reset_counts()
+        t0 = time.perf_counter()
+        state = entry.run(p)
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        by_dtype = _launches(kernels)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        kept = torch.cuda.memory_allocated(dev) - resident
+        losses = list(p.metrics.deques["loss"])
+
+        L = p.vlm_cfg.llm.n_layers
+        tower = sum(v.depth - 1 for _, v in p.vlm_cfg.vision)
+        n_steps = PT_EPOCHS * len(inner)
+        per_step = {"flash_fwd": {"bfloat16": 2 * L},
+                    "flash_bwd_dq": {"bfloat16": L},
+                    "flash_bwd_dkv": {"bfloat16": L}, "int4_matmul": {}}
+        uncached_step = {**per_step, "flash_fwd": {"bfloat16": 2 * L + tower}}
+        if state.step != n_steps or len(losses) != n_steps:
+            raise AssertionError(f"pretrain align: step {state.step}, "
+                                 f"losses {losses}")
+        if cache.encodes != sum(predicted) or predicted[1:] != [0] * (
+                PT_EPOCHS - 1) or cache.vision is not None:
+            raise AssertionError(f"pretrain: {cache.encodes} encodes against "
+                                 f"{predicted} predicted by epoch (towers "
+                                 f"released: {cache.vision is None})")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        if not all(np.isfinite(losses)) or max(rel) > PT_CACHE_RTOL:
+            raise AssertionError(f"pretrain: cached losses {losses} against "
+                                 f"uncached {plain_losses}")
+        if any(s != per_step for s in steps) or any(
+                s != uncached_step for s in plain_steps):
+            raise AssertionError(f"pretrain launches per step: cached "
+                                 f"{steps}, uncached {plain_steps}; want "
+                                 f"{per_step} / {uncached_step}")
+        if by_dtype != {name: {dt: n * n_steps + (
+                tower * cache.encodes if name == "flash_fwd" else 0)
+                for dt, n in by.items()} for name, by in per_step.items()}:
+            raise AssertionError(f"pretrain: the run launched {by_dtype}")
+        tower_bytes = _count(p.state.params["vision"]) * 2    # bf16
+        if kept > 64 << 20:
+            raise AssertionError(f"pretrain: {kept} device bytes kept after "
+                                 f"the run (a tower copy is {tower_bytes})")
+        align = {
+            "build_s": build_s, "run_s": run_s, "steps": n_steps,
+            "losses": losses, "uncached_losses": plain_losses,
+            "cached_vs_uncached_max_rel": max(rel),
+            "bit_equal": losses == plain_losses,
+            "encodes": cache.encodes, "encodes_predicted": predicted,
+            "encode_ms": [s * 1e3 for s in encode_s],
+            "step_ms_cached": [s * 1e3 for s in step_s],
+            "step_ms_uncached": plain_ms,
+            "step_ms_cached_median": float(np.median(step_s)) * 1e3,
+            "step_ms_uncached_median": float(np.median(plain_ms)),
+            "cache_entries": len(cache._store), "cache_bytes": cache.nbytes,
+            "cache_capacity": cache.capacity,
+            "launches": launches, "launches_by_dtype": by_dtype,
+            "launches_per_step_cached": per_step,
+            "launches_per_step_uncached": uncached_step,
+            "device_peak_gb": peak_gb, "device_bytes_kept": kept,
+            "tower_bf16_bytes": tower_bytes,
+            "checkpoint_gb": [b / 1e9 for b in ckpt_bytes],
+            "checkpoint_s": save_s}
+        log("pretrain align " + json.dumps(align))
+        del p, state, cache, inner, train_step, save
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # finetune at the vla-train cut: the kernels' first-step loss against
+        # the plain fp32 loss from the same params and batch
+        base = emma_x_vlm_config()
+        cut = dataclasses.replace(base, llm=dataclasses.replace(
+            base.llm, n_layers=VLA_LAYERS))
+        torch.cuda.reset_peak_memory_stats(dev)
+        p = entry.build(parse(common + [
+            "--stage", "finetune", "--max_steps", str(PT_FT_STEPS),
+            "--model.finetune_global_batch_size", str(PT_BATCH)]),
+            image_loader=pretrain_frames, vlm_cfg=cut)
+        first = next(iter(p.loader.epoch(0)))
+        batch = to_device({k: v for k, v in first.items()
+                           if k != "multimodal_indices"}, p.device)
+        from emmax_torch.ops.image import preprocess_for_towers
+
+        with torch.no_grad():
+            _, plain_loss, _ = vlm_forward(
+                cast_params(p.state.params, torch.float32), cut,
+                batch["input_ids"], preprocess_for_towers(
+                    batch["images"], p.transforms),
+                mask=batch["attention_mask"], labels=batch["labels"],
+                attn_impl="torch",
+                multimodal_mask=batch["multimodal_mask"])
+        plain_loss = plain_loss.item()
+        del batch, first
+        save_s, ckpt_bytes = [], []
+        save = p.ckpt.save
+        p.ckpt.save = timed_save
+        for k in kernels:
+            k.reset_counts()
+        t0 = time.perf_counter()
+        state = entry.run(p)
+        torch.cuda.synchronize(dev)
+        ft_s = time.perf_counter() - t0
+        ft_launches = _launches(kernels)
+        ft_losses = list(p.metrics.deques["loss"])
+        ft_rel = abs(ft_losses[0] - plain_loss) / abs(plain_loss)
+        want = {"flash_fwd": {"bfloat16": PT_FT_STEPS * (2 * VLA_LAYERS
+                                                         + tower)},
+                "flash_bwd_dq": {"bfloat16": PT_FT_STEPS * VLA_LAYERS},
+                "flash_bwd_dkv": {"bfloat16": PT_FT_STEPS * VLA_LAYERS},
+                "int4_matmul": {}}
+        if not (state.step == PT_FT_STEPS and np.isfinite(ft_losses).all()
+                and ft_rel <= LOSS_RTOL):
+            raise AssertionError(f"pretrain finetune: losses {ft_losses}, "
+                                 f"plain fp32 first-step loss {plain_loss}")
+        if ft_launches != want:
+            raise AssertionError(f"pretrain finetune launches {ft_launches} "
+                                 f"!= {want}")
+        finetune = {"decoder_layers": VLA_LAYERS, "steps": PT_FT_STEPS,
+                    "losses": ft_losses, "plain_fp32_loss": plain_loss,
+                    "first_step_rel": ft_rel, "run_s": ft_s,
+                    "launches_by_dtype": ft_launches,
+                    "device_peak_gb": torch.cuda.max_memory_allocated(dev)
+                    / 1e9,
+                    "checkpoint_gb": [b / 1e9 for b in ckpt_bytes],
+                    "checkpoint_s": save_s}
+        log("pretrain finetune " + json.dumps(finetune))
+        del p, state, save
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "pretrain", "align": align, "finetune": finetune,
+           "phase_s": time.perf_counter() - t_phase}
+    log("pretrain " + json.dumps({"phase_s": out["phase_s"]}))
+    return out
+
+
 def vla_train_phase(dev, kernels):
     """Emma-X's vla-train stage at full width, decoder cut to
     ``VLA_LAYERS``, through the GCOT data path and the discrete training
@@ -2866,7 +3210,7 @@ def _mesh_align7b(dev, kernels, mesh) -> dict:
 
 
 def _mesh_vla_train(dev, kernels, mesh) -> dict:
-    """vla-train's 8-layer cut through ``run_discrete_vla_training``:
+    """vla-train's ``VLA_LAYERS`` cut through ``run_discrete_vla_training``:
     ``MESH_VLA_STEPS`` steps unwrapped, then on the mesh with the mesh's
     checkpoint save (rank 0 writes the gathered tree) and restore (each
     rank its blocks), against the unwrapped losses and the live state."""
@@ -3037,7 +3381,7 @@ def _mesh_serving(dev, kernels, mesh) -> dict:
 def multigpu_phase(dev, kernels) -> dict:
     """The multi-GPU path at world size 1: a NCCL process group joined
     in-process (``initialize_distributed``), the (1, 1, 1) mesh on
-    "cuda", and the full-width align7b step, vla-train's 8-layer trainer
+    "cuda", and the full-width align7b step, vla-train's cut trainer
     with a checkpoint, and a served request through it, each against the
     unwrapped path."""
     import socket
@@ -3150,16 +3494,23 @@ def main(argv) -> int:
     log("speculative " + json.dumps({"tiny_steps": tiny_spec, **spec}))
     log_phase("align7b_phase")
     align = align7b_phase(dev, kernels)
+    log_phase("pretrain_phase")
+    pre = pretrain_phase(dev, kernels)
     log_phase("vla_train_phase")
     vla = vla_train_phase(dev, kernels)
     log_phase("vla_full_train_fp32_phase")
     full = vla_full_train_fp32_phase(dev, kernels)
-    log("training " + json.dumps({"align7b": align, "vla_train": vla,
+    log("training " + json.dumps({"align7b": align, "pretrain": pre,
+                                  "vla_train": vla,
                                   "vla_full_train_fp32": full}))
     log_phase("multigpu_phase")
     multi = multigpu_phase(dev, kernels)
     log("multigpu " + json.dumps(multi))
     mstep = multi["align7b"]["launches_per_step"]
+    # bf16 launches per pretrain align step: (uncached, cached)
+    pstep = {k: (pre["align"]["launches_per_step_uncached"][k]["bfloat16"],
+                 pre["align"]["launches_per_step_cached"][k]["bfloat16"])
+             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     def entry(rec, kernel, replaces, launches, **extra):
         return {"name": extra.pop("name", kernel.name), "route": "cuda",
@@ -3200,6 +3551,8 @@ def main(argv) -> int:
               "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
               launches_path="align7b train step",
               launches_multigpu_align7b_step=mstep["flash_fwd"],
+              launches_pretrain_align_step_uncached_cached=pstep[
+                  "flash_fwd"],
               launches_multigpu_request_by_dtype=multi["serving"]["mesh"][
                   "flash_fwd_by_dtype"],
               **fwd_res["tc::fwd_kernel<128>"],
@@ -3222,11 +3575,15 @@ def main(argv) -> int:
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
               launches_path="align7b train step",
               launches_multigpu_align7b_step=mstep["flash_bwd_dq"],
+              launches_pretrain_align_step_uncached_cached=pstep[
+                  "flash_bwd_dq"],
               **bwd_res["tc::dq_kernel<128>"]),
         entry(by_name["flash_bwd_dkv"], fa.DKV_KERNEL,
               "emmax_tpu/ops/flash_attention.py:445",
               step["flash_bwd_dkv"], launches_path="align7b train step",
               launches_multigpu_align7b_step=mstep["flash_bwd_dkv"],
+              launches_pretrain_align_step_uncached_cached=pstep[
+                  "flash_bwd_dkv"],
               **bwd_res["tc::dkv_kernel<128, false>"],
               fused={**{k: by_name["flash_bwd_dkv_fused"][k] for k in
                         ("ms", "eager_ms", "max_abs_err", "bound_ms",
@@ -3236,7 +3593,7 @@ def main(argv) -> int:
                 f"emmax_tpu/ops/flash_attention.py:{line}",
                 full_step[kernel.name]["float32"], name=f"{kernel.name}_fp32",
                 dtype="float32", launches_path="vla-full-train-fp32 train "
-                "step (8 decoder layers + 49 tower blocks)",
+                f"step ({VLA_LAYERS} decoder layers + 49 tower blocks)",
                 bound_fp32_fma_ms=by_name32[kname][0]["bound_fp32_fma_ms"],
                 resources={n: r for n, r in bwd_res.items()
                            if n.startswith(f"tf32::{kind}_kernel<")},

@@ -151,3 +151,11 @@ def config_to_dict(cfg: Any) -> Any:
     if isinstance(cfg, dict):
         return {k: config_to_dict(v) for k, v in cfg.items()}
     return cfg
+
+
+def dump_config(cfg: Any, path: Path) -> None:
+    """``config_to_dict(cfg)`` as indented JSON at ``path`` (parents made)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=2, default=str)

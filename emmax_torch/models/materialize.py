@@ -1,5 +1,7 @@
-"""Backbone ids -> static configs and image transforms, port of the part of
-``emmax_tpu/models/materialize.py`` that the Emma-X flagship needs."""
+"""Backbone ids -> static configs and image transforms, port of
+``emmax_tpu/models/materialize.py``. The port builds the backbones of the
+Emma-X flagship; every other id raises a ``KeyError`` naming what it
+builds."""
 
 from __future__ import annotations
 
@@ -7,8 +9,9 @@ from typing import Dict, Tuple
 
 from emmax_torch.models.llama import LLAMA2_7B, LlamaConfig
 from emmax_torch.models.vit import DINOV2_L_REG4, SIGLIP_SO400M, ViTConfig
+from emmax_torch.models.vlm import VLMConfig
 from emmax_torch.ops.image import (ImageTransformConfig,
-                                   dinosiglip_transform_configs)
+                                   transform_configs_for_backbone)
 
 VISION_BACKBONES: Dict[str, Tuple[Tuple[str, ViTConfig], ...]] = {
     "dinosiglip-vit-so-224px": (("dino", DINOV2_L_REG4),
@@ -38,6 +41,20 @@ def get_llm_config(llm_backbone_id: str) -> Tuple[LlamaConfig, str]:
 
 def get_image_transforms(vision_backbone_id: str, image_resize_strategy: str
                          ) -> Dict[str, ImageTransformConfig]:
-    if vision_backbone_id.startswith("dinosiglip"):
-        return dinosiglip_transform_configs(224, image_resize_strategy)
-    raise ValueError(f"unknown vision backbone {vision_backbone_id!r}")
+    get_vision_config(vision_backbone_id)       # raises for an unbuilt id
+    return transform_configs_for_backbone(vision_backbone_id,
+                                          image_resize_strategy)
+
+
+def get_vlm_config(model_id_or_cfg) -> VLMConfig:
+    """The static VLMConfig of a registered ``model_id`` (or of a
+    ``conf.ModelConfig`` instance)."""
+    from emmax_torch.conf import ModelConfig
+
+    if isinstance(model_id_or_cfg, str):
+        mc = ModelConfig.get_choice_class(model_id_or_cfg)()
+    else:
+        mc = model_id_or_cfg
+    vision = get_vision_config(mc.vision_backbone_id)
+    llm, _family = get_llm_config(mc.llm_backbone_id)
+    return VLMConfig(vision=vision, llm=llm, arch_specifier=mc.arch_specifier)

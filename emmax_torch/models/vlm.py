@@ -98,7 +98,16 @@ def encode_images(params: Params, cfg: VLMConfig,
     ``stop_tower_gradient`` stops gradients at the tower outputs, before
     the projector (the align stage: frozen towers, trainable projector).
     The towers then run without autograd, which is the same gradient and
-    records no graph for them."""
+    records no graph for them.
+
+    ``pixel_values={"tower_features": [B, P, C]}`` feeds precomputed tower
+    outputs (``encode_tower_features``; ``training/vision_cache.py``)
+    straight to the projector: no tower runs, and no gradient flows past
+    them."""
+    if "tower_features" in pixel_values:
+        return projector_forward(params["projector"],
+                                 pixel_values["tower_features"].detach(),
+                                 mesh)
     if stop_tower_gradient:
         with torch.no_grad():
             fused = encode_tower_features(params, cfg, pixel_values,

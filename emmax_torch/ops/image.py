@@ -24,6 +24,8 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +129,37 @@ def dinosiglip_transform_configs(size: int = 224,
         "siglip": ImageTransformConfig(size, resize_strategy,
                                        SIGLIP_MEAN, SIGLIP_STD),
     }
+
+
+def transform_configs_for_backbone(vision_backbone_id: str,
+                                   resize_strategy: str,
+                                   size: int = 224
+                                   ) -> Dict[str, ImageTransformConfig]:
+    """Per-tower transforms for every Prismatic vision backbone id (the
+    size from the id: 336 for CLIP-336, 384 for the 384 px towers)."""
+    if vision_backbone_id.startswith("dinosiglip"):
+        size = 384 if "384" in vision_backbone_id else size
+        return dinosiglip_transform_configs(size, resize_strategy)
+    if vision_backbone_id.startswith("dinoclip"):
+        return {"dino": ImageTransformConfig(size, resize_strategy,
+                                             IMAGENET_MEAN, IMAGENET_STD),
+                "clip": ImageTransformConfig(size, resize_strategy,
+                                             CLIP_MEAN, CLIP_STD)}
+    if vision_backbone_id.startswith("clip"):
+        size = 336 if "336" in vision_backbone_id else size
+        return {"clip": ImageTransformConfig(size, resize_strategy,
+                                             CLIP_MEAN, CLIP_STD)}
+    if vision_backbone_id.startswith("siglip"):
+        size = 384 if "384" in vision_backbone_id else size
+        return {"siglip": ImageTransformConfig(size, resize_strategy,
+                                               SIGLIP_MEAN, SIGLIP_STD)}
+    if vision_backbone_id.startswith("dinov2"):
+        return {"dino": ImageTransformConfig(size, resize_strategy,
+                                             IMAGENET_MEAN, IMAGENET_STD)}
+    if vision_backbone_id.startswith("in1k"):
+        return {"in1k": ImageTransformConfig(size, resize_strategy,
+                                             IMAGENET_MEAN, IMAGENET_STD)}
+    raise KeyError(f"unknown vision backbone {vision_backbone_id!r}")
 
 
 def preprocess_for_towers(img: torch.Tensor,

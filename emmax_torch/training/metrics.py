@@ -1,7 +1,9 @@
 """Metrics containers and trackers, port of
 ``emmax_tpu/training/metrics.py``: the ``Tracker`` protocol,
 ``JSONLinesTracker`` (``run-metrics.jsonl`` + ``{run_id}.jsonl``) and the
-Emma-X container, ``VLADiscreteMetrics``.
+metric containers on one deque-smoothed base: ``Metrics`` (the VLM
+pretraining stages), ``VLAMetrics`` (per-dataset keys) and the Emma-X
+container, ``VLADiscreteMetrics``.
 There is no network here, so a W&B tracker is refused rather than
 silently dropped.
 """
@@ -61,10 +63,9 @@ def build_trackers(kinds, run_id: str, run_dir, hparams=None
     return out
 
 
-class VLADiscreteMetrics:
-    """Emma-X GCOT training metrics (loss, action-token accuracy and L1,
-    grad norm, Solver-eval scores): deque-smoothed means pushed to the
-    trackers, with wall-clock step times."""
+class _SmoothedMetrics:
+    """Deque-smoothed means of committed values, pushed to the trackers
+    with wall-clock step times."""
 
     def __init__(self, trackers: List[Tracker], window: int = 128) -> None:
         self.trackers = trackers
@@ -100,6 +101,27 @@ class VLADiscreteMetrics:
     def finalize(self) -> None:
         for t in self.trackers:
             t.finalize()
+
+    def status(self, epoch: int, lr: float) -> str:
+        m = self._means()
+        return (f"epoch {epoch:03d} step {self.global_step:06d} | "
+                f"loss={m.get('loss', float('nan')):.4f} lr={lr:.2e}")
+
+
+class Metrics(_SmoothedMetrics):
+    """VLM pretraining metrics (loss, grad norm, lr, step time)."""
+
+
+class VLAMetrics(_SmoothedMetrics):
+    """VLA metrics with per-dataset keys (``{dataset}/{name}``)."""
+
+    def commit_for_dataset(self, dataset_name: str, **values: float) -> None:
+        self.commit(**{f"{dataset_name}/{k}": v for k, v in values.items()})
+
+
+class VLADiscreteMetrics(_SmoothedMetrics):
+    """Emma-X GCOT training metrics: loss, action-token accuracy and L1,
+    grad norm, Solver-eval scores."""
 
     def status(self, epoch: int, lr: float) -> str:
         m = self._means()

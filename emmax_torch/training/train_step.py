@@ -103,9 +103,12 @@ def make_grad_fn(cfg: VLMConfig, *, attn_impl: str = "auto", remat=True,
         return {k: v.to(compute_dtype) for k, v in pv.items()}
 
     def loss_fn(params, batch):
+        pv = pixel_values(batch)
+        if "tower_features" in pv:   # cached features: no tower runs
+            params = {k: v for k, v in params.items() if k != "vision"}
         cparams = cast_params(params, compute_dtype)
         logits, loss, _ = vlm_forward(
-            cparams, cfg, batch["input_ids"], pixel_values(batch),
+            cparams, cfg, batch["input_ids"], pv,
             mask=batch["attention_mask"], labels=batch["labels"],
             attn_impl=attn_impl, remat=remat,
             stop_vision_gradient=stop_vision_gradient,
@@ -168,7 +171,10 @@ def make_train_step(cfg: VLMConfig, tx: Optimizer, *,
 
     ``batch``: {"input_ids", "attention_mask", "labels"} tensors on the
     params' device plus either ``"pixel_values": {tower: [B, H, W, 3]}``
-    (normalized) or, with ``transforms`` (tower -> ImageTransformConfig),
+    (normalized), ``"pixel_values": {"tower_features": [B, P, C]}`` (the
+    towers' cached outputs: no tower runs, and the step reads no
+    ``params["vision"]``) or, with ``transforms`` (tower ->
+    ImageTransformConfig),
     uint8 ``"images": [B, H, W, 3]``, resized and normalized on the device.
     With ``grad_accum_steps > 1`` the batch's leading dim is
     ``accum * micro`` and the micro-batches' gradients are averaged (under

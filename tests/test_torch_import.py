@@ -51,7 +51,23 @@ def test_import_loads_no_jax():
             "emmax_torch.parallel.sharding",
             "emmax_torch.parallel.constraints",
             "emmax_torch.parallel.gather",
-            "emmax_torch.ops.ring_attention"} <= set(MODULES)
+            "emmax_torch.ops.ring_attention", "emmax_torch.pretrain",
+            "emmax_torch.training.vision_cache", "emmax_torch.util",
+            "emmax_torch.util.batching",
+            "emmax_torch.conf.datasets"} <= set(MODULES)
+
+
+def test_pretrain_modules_import_no_opencv():
+    """The card has no OpenCV: the pretraining datasets import it only
+    when they read or write an image."""
+    code = ("import sys\n"
+            "import emmax_torch.data.pretrain, emmax_torch.pretrain\n"
+            "import emmax_torch.training.vision_cache\n"
+            "print('cv2' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip().splitlines()[-1] == "False"
 
 
 def test_no_source_imports_jax_or_the_jax_package():
