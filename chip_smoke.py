@@ -187,10 +187,32 @@ Phases, each raising on failure (the script then exits non-zero):
    the unsharded engine's tokens and launches (49 fp32 + 32 bf16 flash
    forwards). The group is destroyed at the end.
 
-Phases 4b, 5b, 10b, 7, 7b, 11, 12 and 13 run after phase 10 (4b with phase 4,
-5b with phase 5); ``--kernels-only`` skips them. The line before the last is the
-card's name and power limit; the one before it a JSON object with one
-entry per kernel; the last line is
+14. ``zoo``: the Prismatic backbones beyond Emma-X's (``models/
+   materialize.py``) at full width and depth on seeded random weights made
+   on the card, each model freed before the next is built (peak bytes
+   each): (a) the seven new vision backbones (CLIP-L, CLIP-L/336,
+   SigLIP-384, DINOv2-L, IN1K-L, DINO + CLIP-336, DINO + SigLIP-384), one
+   preprocessed 256x256 frame each, encoded in fp32 through the kernels
+   against the plain path (``ZOO_TOWER_RTOL``; patch count; depth - 1
+   fp32 forwards a tower); (b) ``phi-2+3b`` (CLIP-L/336 + Phi-2): a bf16
+   and an int4 request of ``ZOO_NEW`` tokens through ``load_vla`` ->
+   ``generate_actions`` (launch gates: 23 fp32 forwards an encode, 32 bf16
+   in the prefill, int4 on w{q,k,v,o}, w1, w2 and the biased lm_head in
+   every forward), the prefill's logits kernel vs plain (``BF16_RTOL``)
+   and the greedy tokens equal up to the plain path's first near-tie,
+   and one align step at B2 (loss and projector gradient against the
+   plain path, as align7b; launches 87 / 32 / 32, the D 80 training
+   kernels); (c) ``llama2+13b`` (40 heads at D 128) in bf16; (d)
+   ``mistral-v0.1+7b`` (GQA, 8 KV heads) in bf16 and int4 (``wk`` / ``wv``
+   at 4096 -> 1024); then each kernel at the zoo's shapes against its
+   plain version, timed (the towers' 577 / 729 / 734 tokens in fp32, Phi's
+   prefill and training shapes at D 80, int4 at Phi's and Mistral's
+   weights). One JSON line.
+
+Phases 4b, 5b, 10b, 7, 7b, 11, 12, 13 and 14 run after phase 10 (4b with
+phase 4, 5b with phase 5); ``--kernels-only`` skips them. The line
+before the last is the card's name and power limit; the one before it a
+JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -272,6 +294,17 @@ PT_CACHE_RTOL = 1e-6
 # kernels on the same tensors: 0 expected); vla-train steps through the mesh
 MESH_RTOL = 1e-6
 MESH_VLA_STEPS = 2
+# zoo: the Prismatic backbones beyond Emma-X's (emmax_torch/models/
+# materialize.py): the new vision backbones' encodes, phi-2+3b served and
+# trained, llama2+13b and mistral-v0.1+7b served; ZOO_NEW new tokens a
+# request. Towers kernel vs plain in fp32: the features relative to their
+# largest entry (the 3xTF32 attention's ~2e-6 a call through 23-26 blocks)
+ZOO_TOWERS = ("clip-vit-l", "clip-vit-l-336px", "siglip-vit-so400m-384px",
+              "dinov2-vit-l", "in1k-vit-l", "dinoclip-vit-l-336px",
+              "dinosiglip-vit-so-384px")
+ZOO_PHI, ZOO_13B, ZOO_MISTRAL = "phi-2+3b", "llama2+13b", "mistral-v0.1+7b"
+ZOO_NEW = 32
+ZOO_TOWER_RTOL = 1e-4
 
 
 T0 = time.perf_counter()
@@ -1329,8 +1362,9 @@ def checkpoint_phase(dev, kernels) -> dict:
     frame = np.random.default_rng(7).integers(0, 256, (256, 256, 3),
                                               dtype=np.uint8)
     ids = cw.vlm_ids(MODEL_ID)
+    weights = [k for k in QUANT_KEYS if k in params["llm"]["layers"]]
     leaf_bytes = max(_tree_bytes(params["llm"]["layers"][k])
-                     for k in QUANT_KEYS)
+                     for k in weights)
 
     def in_memory(tree):
         return EmmaXVLA(cfg, tree, tok, transforms, norm_stats=stats,
@@ -1406,7 +1440,7 @@ def checkpoint_phase(dev, kernels) -> dict:
         torch.cuda.synchronize(dev)
         ref_quant_s = time.perf_counter() - t0
         diff = {"codes": 0, "scales": 0}
-        for k in (*QUANT_KEYS, None):
+        for k in (*weights, None):
             a = want4["llm"]["layers"][k] if k else want4["llm"]["lm_head"]
             b = tree4["llm"]["layers"][k] if k else tree4["llm"]["lm_head"]
             diff["codes"] += int((a["q4"] != b["q4"]).sum())
@@ -2320,6 +2354,46 @@ def profile_step(run, step_ms: float) -> dict:
             "attention_ms": attn, "top_kernels_ms": top}
 
 
+def align_parity(cfg, params, batch, common, what) -> tuple:
+    """One align step's loss and projector gradient from one state,
+    through the kernels and through the plain path, in fp32 (held at
+    LOSS_RTOL and GRAD_RTOL of the largest entry) and in bf16 (each held
+    against the fp32 plain run: the kernels no farther from it than twice
+    the plain path's distance, or GRAD_RTOL; the two bf16 paths round
+    differently through every decoder layer, so they are not held to each
+    other). Returns (the fp32 plain loss, the largest projector gradient
+    entry, {path: (loss rel, grad err / max)})."""
+    from emmax_torch.training.train_step import make_grad_fn
+
+    results = {}
+    for impl, dtype in (("torch", torch.float32), ("cuda", torch.float32),
+                        ("cuda", torch.bfloat16), ("torch", torch.bfloat16)):
+        loss, _, grads = make_grad_fn(
+            cfg, attn_impl=impl, **{**common, "compute_dtype": dtype})(
+                params, batch)
+        results[impl, dtype] = (loss.item(), [g.float() for g in _leaves(
+            grads["projector"])])
+        del grads
+    ref_loss, ref_g = results["torch", torch.float32]
+    g_scale = max(g.abs().max().item() for g in ref_g)
+
+    def dist(key):
+        loss, g = results[key]
+        return abs(loss - ref_loss) / abs(ref_loss), max(
+            (a - b).abs().max().item() for a, b in zip(g, ref_g)) / g_scale
+
+    parity = {f"{impl}_{str(dt)[6:]}": dist((impl, dt))
+              for impl, dt in results}
+    k32, kb, pb = (parity["cuda_float32"], parity["cuda_bfloat16"],
+                   parity["torch_bfloat16"])
+    if not (np.isfinite(ref_loss) and k32[0] <= LOSS_RTOL
+            and k32[1] <= GRAD_RTOL and kb[0] <= LOSS_RTOL
+            and kb[1] <= max(2 * pb[1], GRAD_RTOL)):
+        raise AssertionError(f"{what} parity (loss rel, grad err / max) "
+                             f"against the fp32 plain step: {parity}")
+    return ref_loss, g_scale, parity
+
+
 def align7b_phase(dev, kernels):
     """Full 7B, align stage: kernel-vs-plain step parity, launch counts per
     step, then timed steps on one batch."""
@@ -2328,8 +2402,7 @@ def align7b_phase(dev, kernels):
     from emmax_torch.training.train_state import (create_train_state,
                                                   make_optimizer,
                                                   trainable_mask)
-    from emmax_torch.training.train_step import (make_grad_fn,
-                                                  make_train_step)
+    from emmax_torch.training.train_step import make_train_step
 
     cfg = emma_x_vlm_config()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2353,39 +2426,8 @@ def align7b_phase(dev, kernels):
                   freeze_mask=trainable_mask(params, "align"),
                   action_vocab_size=32000)
 
-    # One step's loss and projector gradient from one state, through the
-    # kernels and through the plain path, in fp32 (held at LOSS_RTOL and
-    # GRAD_RTOL of the largest entry) and in bf16 (each held against the
-    # fp32 plain run: the kernels no farther from it than twice the plain
-    # path's distance, or GRAD_RTOL; the two bf16 paths round differently
-    # through 32 layers, so they are not held to each other).
-    results = {}
-    for impl, dtype in (("torch", torch.float32), ("cuda", torch.float32),
-                        ("cuda", torch.bfloat16), ("torch", torch.bfloat16)):
-        loss, _, grads = make_grad_fn(
-            cfg, attn_impl=impl, **{**common, "compute_dtype": dtype})(
-                params, batch)
-        results[impl, dtype] = (loss.item(), [g.float() for g in _leaves(
-            grads["projector"])])
-        del grads
-    ref_loss, ref_g = results["torch", torch.float32]
-    g_scale = max(g.abs().max().item() for g in ref_g)
-
-    def dist(key):
-        loss, g = results[key]
-        return abs(loss - ref_loss) / abs(ref_loss), max(
-            (a - b).abs().max().item() for a, b in zip(g, ref_g)) / g_scale
-
-    parity = {f"{impl}_{str(dt)[6:]}": dist((impl, dt))
-              for impl, dt in results}
-    del results, ref_g
-    k32, kb, pb = (parity["cuda_float32"], parity["cuda_bfloat16"],
-                   parity["torch_bfloat16"])
-    if not (np.isfinite(ref_loss) and k32[0] <= LOSS_RTOL
-            and k32[1] <= GRAD_RTOL and kb[0] <= LOSS_RTOL
-            and kb[1] <= max(2 * pb[1], GRAD_RTOL)):
-        raise AssertionError(f"align7b parity (loss rel, grad err / max) "
-                             f"against the fp32 plain step: {parity}")
+    ref_loss, g_scale, parity = align_parity(cfg, params, batch, common,
+                                             "align7b")
     log(f"align7b parity against the fp32 plain step (loss {ref_loss:.6f}, "
         f"projector grad max {g_scale:.4g}): {json.dumps(parity)}")
 
@@ -3414,6 +3456,406 @@ def multigpu_phase(dev, kernels) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- zoo --
+
+def zoo_towers(dev, fa_kernel) -> list:
+    """(a) Each new vision backbone id at full width and depth, seeded
+    random bf16 weights: one preprocessed 256x256 frame encoded in fp32
+    (as the engines encode) through the kernels and through the plain path
+    on the same params; the features' error against ``ZOO_TOWER_RTOL``,
+    the patch count, the fp32 forward's launches per encode (depth - 1 a
+    tower) and the encode's device ms (CUDA events, after a warm-up)."""
+    from emmax_torch.models.materialize import (get_image_transforms,
+                                                get_vision_config)
+    from emmax_torch.models.vit import init_vit_params, vit_forward
+    from emmax_torch.ops.image import preprocess_for_towers
+
+    frame = torch.from_numpy(np.random.default_rng(17).integers(
+        0, 256, (1, 256, 256, 3), dtype=np.uint8)).to(dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    rows = []
+    for vid in ZOO_TOWERS:
+        towers = get_vision_config(vid)
+        pixels = preprocess_for_towers(frame, get_image_transforms(
+            vid, "resize-naive"))
+        params = {n: init_vit_params(gen, v, torch.bfloat16, dev)
+                  for n, v in towers}
+
+        def encode(impl):
+            with torch.inference_mode():
+                return torch.cat([vit_forward(params[n], v, pixels[n],
+                                              attn_impl=impl)
+                                  for n, v in towers], dim=-1)
+
+        encode("cuda")                                    # warm-up
+        fa_kernel.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = encode("cuda")
+        end.record()
+        end.synchronize()
+        launches = dict(fa_kernel.launches_by)
+        want = encode("torch")
+        blocks = sum(v.depth - 1 for _, v in towers)
+        P = towers[0][1].num_patches
+        err, rel = rel_err(got, want)
+        shape = (1, P, sum(v.dim for _, v in towers))
+        if (tuple(got.shape) != shape or not bool(got.isfinite().all())
+                or not rel <= ZOO_TOWER_RTOL or launches != {"float32":
+                                                             blocks}):
+            raise AssertionError(
+                f"zoo tower {vid}: shape {tuple(got.shape)} (want {shape}),"
+                f" rel err {rel:.3g} (tol {ZOO_TOWER_RTOL}), launches "
+                f"{launches} (want {blocks} fp32)")
+        rows.append({"vision_backbone": vid, "patches": P,
+                     "tokens": [v.num_patches + v.num_prefix
+                                for _, v in towers],
+                     "head_dims": [v.head_dim for _, v in towers],
+                     "launches_fp32_per_encode": blocks,
+                     "max_abs_err": err, "rel_err": rel,
+                     "tolerance": ZOO_TOWER_RTOL,
+                     "encode_ms": start.elapsed_time(end)})
+        del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_request(dev, kernels, model_id, quantize) -> dict:
+    """One request of ``ZOO_NEW`` new tokens through ``load_vla(model_id)``
+    -> ``generate_actions`` (a warm-up request first), seeded random
+    weights at full width and depth: its timings, launches by kernel and
+    dtype (gated: the towers' fp32 forward depth - 1 a tower, the bf16
+    forward once per decoder layer in the prefill, int4 on every quantized
+    weight of every layer and the lm_head in every forward), the load's
+    seconds and the device peak. Returns (record, the VLA, the frame, the
+    prompt)."""
+    import emmax_torch
+    from emmax_torch.serving.quant import QUANT_KEYS
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    vla = emmax_torch.load_vla(model_id, quantize=quantize, device="cuda",
+                               seed=0)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    frame = np.random.default_rng(19).integers(0, 256, (256, 256, 3),
+                                               dtype=np.uint8)
+    prompt = vla.get_prompt(TASK, gripper_position=(128, 96))
+    vla.generate_actions(frame, prompt, type="act", max_new_tokens=ZOO_NEW)
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.perf_counter()
+    actions, text = vla.generate_actions(frame, prompt, type="act",
+                                         max_new_tokens=ZOO_NEW)
+    request_ms = (time.perf_counter() - t0) * 1e3
+    for a in actions:
+        if a.shape != (7,) or not np.isfinite(a).all():
+            raise AssertionError(f"zoo {model_id}: bad action {a!r}")
+    if not isinstance(text, str):
+        raise AssertionError(f"zoo {model_id}: no text")
+    tm = dict(vla.engine.last_timings)
+    cfg = vla.cfg
+    forwards = int(tm["decode_forwards"]) + 1
+    L = cfg.llm.n_layers
+    blocks = sum(v.depth - 1 for _, v in cfg.vision)
+    layers = vla.engine.model.tree()["llm"]["layers"]
+    weights = [k for k in QUANT_KEYS if k in layers]
+    quantized = [k for k in weights if isinstance(layers[k], dict)]
+    launches = {k.name: dict(k.launches_by) for k in kernels}
+    counts = {k.name: k.launches for k in kernels}
+    want = {"flash_fwd": {"float32": blocks, "bfloat16": L},
+            "int4_matmul": forwards * (len(weights) * L + 1)
+            if quantize else 0}
+    if (launches["flash_fwd"] != want["flash_fwd"]
+            or counts["int4_matmul"] != want["int4_matmul"]
+            or quantized != (weights if quantize else [])
+            or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
+        raise AssertionError(f"zoo {model_id} {quantize or 'bf16'}: "
+                             f"launches {launches} / {counts}, want {want} "
+                             f"({forwards} forwards; quantized "
+                             f"{quantized} of {weights})")
+    rec = {"model_id": model_id, "path": quantize or "bf16",
+           "load_s": load_s, "request_ms": request_ms,
+           "encode_ms": tm["encode_ms"], "prefill_ms": tm["prefill_ms"],
+           "decode_ms": tm["decode_ms"], "decode_forwards": forwards - 1,
+           "decode_tok_s": ((forwards - 1) / tm["decode_ms"] * 1e3
+                            if forwards > 1 else None),
+           "prefill_tokens": tm["prefill_tokens"],
+           "launches_by_dtype": launches, "launches": counts,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    return rec, vla, frame, prompt
+
+
+def zoo_kernel_vs_plain(vla, frame, prompt) -> dict:
+    """(b) The served bf16 model through the kernels and through the plain
+    path on the same patches: the prefill's last fp32 logits within
+    ``BF16_RTOL`` of the largest |plain logit|; each bf16 path's distance
+    from the plain path run in fp32 on the same weights (cast up), the
+    kernels' no more than twice the plain path's (``align_parity``'s
+    rule: the two bf16 paths round differently through every layer, and
+    the fp32 run says how far a sound bf16 path lands); and ``ZOO_NEW``
+    greedy tokens equal up to the first position where the plain path's
+    logits hold the two paths' tokens within ``BF16_RTOL`` of each other
+    (a near-tie, reported)."""
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.serving.engine import (_prefill_last_logits, _round_up,
+                                            encode_frame)
+    from emmax_torch.training.train_step import cast_params
+
+    eng = vla.engine
+    params, cfg = eng.model.tree(), eng.cfg
+    plain = EmmaXVLA(cfg, params, vla.tokenizer, vla.transforms,
+                     llm_family=vla.llm_family, attn_impl="torch",
+                     device="cuda")
+    patches = encode_frame(params, cfg, vla._pixels(frame))
+    ids, mask = eng._prepare([prompt])
+    cache_len = _round_up(cfg.num_patches + ids.shape[1] + 8)
+    logits = {impl: _prefill_last_logits(params, cfg, ids, mask,
+                                         {"patches": patches},
+                                         cache_len=cache_len, attn_impl=impl)
+              for impl in ("cuda", "torch")}
+    params32 = {**params, "llm": cast_params(params["llm"], torch.float32)}
+    fp32 = _prefill_last_logits(params32, cfg, ids, mask,
+                                {"patches": patches.float()},
+                                cache_len=cache_len, attn_impl="torch")
+    del params32
+    err, rel = rel_err(logits["cuda"], logits["torch"])
+    from_fp32 = {impl: rel_err(lg, fp32)[1] for impl, lg in logits.items()}
+    if not (rel <= BF16_RTOL
+            and from_fp32["cuda"] <= 2 * from_fp32["torch"]):
+        raise AssertionError(
+            f"zoo prefill logits: kernel vs plain rel err {rel:.3g} (tol "
+            f"{BF16_RTOL}); from the fp32 plain run kernel "
+            f"{from_fp32['cuda']:.3g}, plain bf16 {from_fp32['torch']:.3g} "
+            f"(the kernel's at most twice the plain path's)")
+    toks = {name: e.generate_ids([prompt], {"patches": patches},
+                                 max_new_tokens=ZOO_NEW)[0].tolist()
+            for name, e in (("kernel", eng), ("plain", plain.engine))}
+    rec = {"prefill_logits_max_abs_err": err, "prefill_logits_rel_err": rel,
+           "tolerance": BF16_RTOL,
+           "prefill_logits_rel_err_from_fp32": {
+               "kernel_bf16": from_fp32["cuda"],
+               "plain_bf16": from_fp32["torch"]},
+           "tokens": ZOO_NEW,
+           "tokens_equal": toks["kernel"] == toks["plain"],
+           "first_difference": None}
+    if not rec["tokens_equal"]:
+        a, b = toks["kernel"], toks["plain"]
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        one, _ = logits_both_ways(plain, frame, prompt, b, p)
+        gap = abs(one[a[p]] - one[b[p]]).item() / one.abs().max().item()
+        rec.update(first_difference=p, kernel_token=a[p], plain_token=b[p],
+                   plain_gap=gap)
+        if not gap <= BF16_RTOL:
+            raise AssertionError(f"zoo tokens differ at {p}, not a "
+                                 f"near-tie of the plain path: {rec}")
+    del plain
+    return rec
+
+
+def zoo_phi_align(dev, kernels) -> dict:
+    """(b) ``phi-2+3b`` in the align stage (CLIP-L/336 and Phi-2 frozen,
+    the projector trained; fp32 masters, bf16 compute, full remat; B2,
+    text 192 -> fused 768): one step's loss and projector gradient
+    through the kernels against the plain path from the same state (the
+    align7b phase's gate), then one counted step (the bf16 forward 2 per
+    decoder layer + 23 tower blocks, the D 80 dQ and dK/dV once a layer)
+    and one timed step."""
+    from emmax_torch.models.materialize import (get_image_transforms,
+                                                get_vlm_config)
+    from emmax_torch.models.vlm import init_vlm_params
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import make_train_step
+
+    cfg = get_vlm_config(ZOO_PHI)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(0)
+    params = init_vlm_params(gen, cfg, torch.float32, dev)
+    tx, _ = make_optimizer(params, learning_rate=2e-5, weight_decay=0.0,
+                           max_grad_norm=1.0, lr_scheduler_type="constant",
+                           total_steps=10, stage="align")
+    state = create_train_state(params, tx)
+    batch = align_batch(dev, 50256)
+    common = dict(remat=True, stop_vision_gradient=True,
+                  compute_dtype=torch.bfloat16,
+                  transforms=get_image_transforms("clip-vit-l-336px",
+                                                  "letterbox"),
+                  freeze_mask=trainable_mask(params, "align"),
+                  action_vocab_size=32000)
+    ref_loss, _, parity = align_parity(cfg, params, batch, common,
+                                       "zoo phi align")
+    step = make_train_step(cfg, tx, attn_impl="cuda", **common)
+    for k in kernels:
+        k.reset_counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize(dev)
+    launches = {k.name: dict(k.launches_by) for k in kernels}
+    L = cfg.llm.n_layers
+    blocks = sum(v.depth - 1 for _, v in cfg.vision)
+    want = {"flash_fwd": {"bfloat16": 2 * L + blocks},
+            "flash_bwd_dq": {"bfloat16": L},
+            "flash_bwd_dkv": {"bfloat16": L}, "int4_matmul": {}}
+    if launches != want:
+        raise AssertionError(f"zoo phi align launches per step {launches}, "
+                             f"want {want}")
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    loss = m["loss"].item()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if not np.isfinite(loss):
+        raise AssertionError(f"zoo phi align: loss {loss}")
+    out = {"model_id": ZOO_PHI, "batch": ALIGN_B, "text_len": ALIGN_TEXT,
+           "fused_seq": ALIGN_TEXT + cfg.num_patches,
+           "loss_fp32_plain": ref_loss, "parity": parity,
+           "launches_per_step": launches, "step_ms": step_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del state, step, params, tx, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_kernel_checks(dev) -> dict:
+    """Each kernel against its plain version at the zoo's shapes, timed:
+    the 3xTF32 forward over the CLIP-336 (577 tokens, D 64), SigLIP-384
+    (729, D 72) and DINOv2-384 (734, D 64) towers; the bf16 forward at
+    Phi-2's prefill (H 32, D 80, into the request's cache) and the
+    training kernels at its align step (B2, fused 768, D 80); int4 at
+    every int4 weight of Phi-2 and Mistral-7B (``zoo_int4_weights``), at
+    M 1 (decode) and at the prefill's rows."""
+    from emmax_torch.models.materialize import get_vlm_config
+    from emmax_torch.serving.engine import _round_up, pick_bucket
+    from emmax_torch.vla.prompting import build_emma_x_task_prompt
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    gen = torch.Generator(dev)
+    gen.manual_seed(2)
+    phi = get_vlm_config(ZOO_PHI)
+    llm = phi.llm
+    n_tok = len(load_tokenizer(None).encode(build_emma_x_task_prompt(
+        TASK, (128, 96))))
+    bucket = pick_bucket(n_tok)
+    Lq = phi.num_patches + bucket
+    S = _round_up(Lq + ZOO_NEW)
+    flash = [check_flash(dev, gen, f"{n} B1 L{L} H16 D{D}", 1, L, L, 16, D,
+                         False, 0, torch.float32)
+             for n, L, D in (("clip-336", 577, 64), ("siglip-384", 729, 72),
+                             ("dinov2-384", 734, 64))]
+    flash.append(check_flash(
+        dev, gen, f"phi prefill B1 Lq{Lq} S{S} H{llm.n_heads} "
+        f"D{llm.head_dim} causal pad{bucket - n_tok}", 1, Lq, S,
+        llm.n_heads, llm.head_dim, True, bucket - n_tok, torch.bfloat16))
+    F = phi.num_patches + ALIGN_TEXT
+    train = check_flash_bwd(dev, gen, f"phi train B{ALIGN_B} L{F} "
+                            f"H{llm.n_heads} D{llm.head_dim} causal "
+                            f"rpad{ALIGN_PAD}", ALIGN_B, F, llm.n_heads,
+                            llm.head_dim, True, ALIGN_PAD, torch.bfloat16)
+    int4 = [check_int4(dev, gen, f"{n} M{M} D{d} F{f}", M, d, f,
+                       layers=zoo_int4_layers(d, f))
+            for n, d, f, Lq_n in zoo_int4_weights(bucket)
+            for M in (1, Lq_n)]
+    return {"flash_fwd": flash, "train": train, "int4": int4}
+
+
+def zoo_int4_weights(bucket: int) -> list:
+    """(name, D, F, prefill rows) of every distinct int4 weight the zoo's
+    int4 requests run (``QUANT_KEYS`` and the lm_head): Phi-2's and
+    Mistral-7B's, the prefill rows being the model's patches plus the
+    prompt's bucket (the lm_head runs on every prefill row)."""
+    from emmax_torch.models.materialize import get_vlm_config
+
+    out = []
+    for model_id, name, ffn in ((ZOO_PHI, "phi", ("w1", "w2")),
+                                (ZOO_MISTRAL, "mistral",
+                                 ("w_gate/w_up", "w_down"))):
+        cfg = get_vlm_config(model_id)
+        c, Lq = cfg.llm, cfg.num_patches + bucket
+        q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+        shapes = {}
+        for shape, w in (((c.dim, q), "wq"), ((c.dim, kv), "wk/wv"),
+                         ((q, c.dim), "wo"), ((c.dim, c.hidden_dim), ffn[0]),
+                         ((c.hidden_dim, c.dim), ffn[1]),
+                         ((c.dim, c.vocab_size), "lm_head")):
+            shapes.setdefault(shape, []).append(w)
+        out += [(f"{name} {'/'.join(w)}", d, f, Lq)
+                for (d, f), w in shapes.items()]
+    return out
+
+
+def zoo_int4_layers(D: int, F: int) -> int:
+    """Stacked layers for ``check_int4``'s timing: at least 8, and enough
+    that the stack's codes fill twice the H100's 50 MB L2, so each call
+    reads its weight from HBM as the decode loop does."""
+    return max(8, -(-100_000_000 // (D // 2 * F)))
+
+
+def zoo_entries(zoo: dict) -> dict:
+    """The zoo phase's launches and kernel checks for each kernel's entry
+    of the ``kernels`` line, by kernel name."""
+    zk = zoo["kernels"]
+    zreq = {f"{r['model_id']} {r['path']}": r for r in zoo["requests"]}
+    zstep = zoo["phi_align"]["launches_per_step"]
+    keys = ("shape", "dtype", "ms", "eager_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")
+    out = {kname: {"launches_phi_align_step": zstep[kname],
+                   **{k: zk["train"][i][k] for k in keys}}
+           for i, kname in ((1, "flash_bwd_dq"), (2, "flash_bwd_dkv"))}
+    out["flash_fwd"] = {
+        "towers": [{k: t[k] for k in ("vision_backbone", "tokens",
+                                      "launches_fp32_per_encode", "rel_err",
+                                      "encode_ms")} for t in zoo["towers"]],
+        "launches_per_request": {n: r["launches_by_dtype"]["flash_fwd"]
+                                 for n, r in zreq.items()},
+        "launches_phi_align_step": zstep["flash_fwd"],
+        "shapes": [{k: r[k] for k in keys}
+                   for r in zk["flash_fwd"] + zk["train"][:1]]}
+    out["int4_matmul"] = {
+        "launches_per_request": {n: r["launches"]["int4_matmul"]
+                                 for n, r in zreq.items()
+                                 if r["path"] == "int4"},
+        "shapes": [{k: r[k] for k in keys} for r in zk["int4"]]}
+    return out
+
+
+def zoo_phase(dev, kernels) -> dict:
+    """``zoo``: the Prismatic backbones beyond Emma-X's at full width and
+    depth on seeded random weights made on the card, each model freed
+    before the next is built: (a) ``zoo_towers``; (b) ``phi-2+3b`` (CLIP-L
+    /336 + Phi-2) served in bf16 (``zoo_kernel_vs_plain``) and int4, and
+    its align step (``zoo_phi_align``); (c) ``llama2+13b`` served in bf16;
+    (d) ``mistral-v0.1+7b`` served in bf16 and int4; then the kernels at
+    the zoo's shapes (``zoo_kernel_checks``)."""
+    from emmax_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    out = {"phase": "zoo", "towers": zoo_towers(dev, fa.KERNEL)}
+    requests = []
+    for model_id, quantize in ((ZOO_PHI, None), (ZOO_PHI, "int4"),
+                               (ZOO_13B, None), (ZOO_MISTRAL, None),
+                               (ZOO_MISTRAL, "int4")):
+        rec, vla, frame, prompt = zoo_request(dev, kernels, model_id,
+                                              quantize)
+        if model_id == ZOO_PHI and quantize is None:
+            rec["kernel_vs_plain"] = zoo_kernel_vs_plain(vla, frame, prompt)
+        requests.append(rec)
+        del vla
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["requests"] = requests
+    out["phi_align"] = zoo_phi_align(dev, kernels)
+    out["kernels"] = zoo_kernel_checks(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("zoo " + json.dumps(out))
+    return out
+
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3506,6 +3948,8 @@ def main(argv) -> int:
     log_phase("multigpu_phase")
     multi = multigpu_phase(dev, kernels)
     log("multigpu " + json.dumps(multi))
+    log_phase("zoo_phase")
+    zoo = zoo_phase(dev, kernels)
     mstep = multi["align7b"]["launches_per_step"]
     # bf16 launches per pretrain align step: (uncached, cached)
     pstep = {k: (pre["align"]["launches_per_step_uncached"][k]["bfloat16"],
@@ -3546,6 +3990,7 @@ def main(argv) -> int:
                                       "bound_fp32_fma_ms", "max_abs_err",
                                       "fp32_rel_err")}
                    for r in flash if r["dtype"] == "float32"]}
+    zoo_of = zoo_entries(zoo)
     entries = [
         entry(by_name["flash_fwd_lse"], fa.KERNEL,
               "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
@@ -3570,14 +4015,16 @@ def main(argv) -> int:
               towers_fp32={**towers, "launches_vla_full_train_fp32_step":
                            full_step["flash_fwd"]["float32"]},
               launches_checkpoint_request_by_dtype=ckpt["hf_int4"][
-                  "request"]["flash_fwd_by_dtype"]),
+                  "request"]["flash_fwd_by_dtype"],
+              zoo=zoo_of["flash_fwd"]),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
               launches_path="align7b train step",
               launches_multigpu_align7b_step=mstep["flash_bwd_dq"],
               launches_pretrain_align_step_uncached_cached=pstep[
                   "flash_bwd_dq"],
-              **bwd_res["tc::dq_kernel<128>"]),
+              **bwd_res["tc::dq_kernel<128>"],
+              zoo=zoo_of["flash_bwd_dq"]),
         entry(by_name["flash_bwd_dkv"], fa.DKV_KERNEL,
               "emmax_tpu/ops/flash_attention.py:445",
               step["flash_bwd_dkv"], launches_path="align7b train step",
@@ -3588,7 +4035,8 @@ def main(argv) -> int:
               fused={**{k: by_name["flash_bwd_dkv_fused"][k] for k in
                         ("ms", "eager_ms", "max_abs_err", "bound_ms",
                          "bound_by", "dq_partial_sum_ms")},
-                     **bwd_res["tc::dkv_kernel<128, true>"]}),
+                     **bwd_res["tc::dkv_kernel<128, true>"]},
+              zoo=zoo_of["flash_bwd_dkv"]),
         *[entry(by_name32[kname][0], kernel,
                 f"emmax_tpu/ops/flash_attention.py:{line}",
                 full_step[kernel.name]["float32"], name=f"{kernel.name}_fp32",
@@ -3618,7 +4066,7 @@ def main(argv) -> int:
               shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms",
                                          "library_ms", "bound_ms",
                                          "bound_by", "max_abs_err")}
-                      for r in int4]),
+                      for r in int4], zoo=zoo_of["int4_matmul"]),
         entry(paged_kernels[1], pa.KERNEL, "emmax_tpu/serving/paged.py:362",
               batched["paged kernel int8"]["launches"]["paged_attention"],
               launches_path="full-width paged kernel run (int8 pages), "

@@ -3,9 +3,8 @@ copy of ``emmax_tpu/conf/models.py``.
 
 Every ``model_id`` of the Prismatic registry resolves through
 ``ModelConfig.get_choice_class``; the checkpoint loader reads the
-backbones of a run directory's ``{"vla": {"base_vlm": id}}`` here. The
-port builds the backbones of ``prism-dinosiglip-224px+7b`` (Emma-X's base
-VLM); ``models/materialize.py`` raises, naming the backbone, for the rest.
+backbones of a run directory's ``{"vla": {"base_vlm": id}}`` here, and
+``models/materialize.py`` builds every id's backbones.
 """
 
 from __future__ import annotations

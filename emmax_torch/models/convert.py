@@ -296,9 +296,8 @@ def convert_timm_vit(sd: Mapping[str, Any], cfg: ViTConfig,
         params["cls_token"] = _cast(sd["cls_token"], dtype, device)
     if cfg.num_reg_tokens:
         params["reg_tokens"] = _cast(sd["reg_token"], dtype, device)
-    # CLIP towers' LayerNorm before the blocks (a config field of towers
-    # the port does not build yet; the converter reads it where present)
-    if getattr(cfg, "pre_norm", False):
+    # CLIP towers' LayerNorm before the blocks
+    if cfg.pre_norm:
         params["pre_norm"] = _norm(sd, "norm_pre.", dtype, device)
     return params
 

@@ -1,4 +1,5 @@
-"""Llama-family decoder (Llama-2), port of ``emmax_tpu/models/llama.py``.
+"""Llama-family decoder (Llama-2, Mistral), port of
+``emmax_tpu/models/llama.py``.
 
 Parameters keep the JAX layout: ``[in, out]`` weights with every decoder
 layer stacked on a leading axis. ``w[i]`` of a contiguous stacked tensor
@@ -73,8 +74,13 @@ class LlamaConfig:
         return self.dim // self.n_heads
 
 
-# Llama-2-7B with the Emma-X padded vocab.
+# Llama-2-7B with the Emma-X padded vocab; Llama-2-13B; Mistral-7B v0.1
+# (grouped-query attention: 32 query heads on 8 KV heads).
 LLAMA2_7B = LlamaConfig()
+LLAMA2_13B = LlamaConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40,
+                         hidden_dim=13824)
+MISTRAL_7B = LlamaConfig(vocab_size=32064, dim=4096, n_layers=32, n_heads=32,
+                         n_kv_heads=8, hidden_dim=14336, max_seq_len=2048)
 
 
 def init_llama_params(generator: torch.Generator, cfg: LlamaConfig,
@@ -279,6 +285,23 @@ def _cache_read(cache: Params, key: str, i: int,
     return vals.to(dtype) * cache[f"{key}_scale"][i].to(dtype)
 
 
+def cache_update(cache: Params, i: int, t0, k_new: torch.Tensor,
+                 v_new: torch.Tensor, dtype: torch.dtype):
+    """Write layer ``i``'s new K/V [B, L, KV, hd] at ``t0`` (int8 rows and
+    their scales in a quantized cache) and return the layer's whole cache
+    (k, v) [B, S, KV, hd] in ``dtype``."""
+    if "k_scale" in cache:
+        for key, new in (("k", k_new), ("v", v_new)):
+            qv, sc = _quantize_kv(new)
+            _cache_write(cache, key, i, qv, t0)
+            _cache_write(cache, f"{key}_scale", i, sc, t0)
+    else:
+        _cache_write(cache, "k", i, k_new, t0)
+        _cache_write(cache, "v", i, v_new, t0)
+    return (_cache_read(cache, "k", i, dtype),
+            _cache_read(cache, "v", i, dtype))
+
+
 def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
                   cfg: LlamaConfig, attn_impl: str, chunk_mask=None,
                   mesh=None):
@@ -291,16 +314,7 @@ def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
     k_new = mm(x, p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     v_new = mm(x, p["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     k_new = apply_rope(k_new, cos, sin)
-    if "k_scale" in cache:
-        for key, new in (("k", k_new), ("v", v_new)):
-            qv, sc = _quantize_kv(new)
-            _cache_write(cache, key, i, qv, t0)
-            _cache_write(cache, f"{key}_scale", i, sc, t0)
-    else:
-        _cache_write(cache, "k", i, k_new, t0)
-        _cache_write(cache, "v", i, v_new, t0)
-    k_c = _cache_read(cache, "k", i, h.dtype)        # [B, S, KV, hd]
-    v_c = _cache_read(cache, "v", i, h.dtype)
+    k_c, v_c = cache_update(cache, i, t0, k_new, v_new, h.dtype)
     q = mm(x, p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     # query i (at slot t0 + i) attends to valid slots j <= t0 + i, or
@@ -310,6 +324,45 @@ def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
                                 chunk_mask=chunk_mask)
     h = h + mm(attn.reshape(B, L, cfg.n_heads * cfg.head_dim), p["wo"])
     return _mlp(h, p, cfg)
+
+
+def default_positions(inputs_embeds: torch.Tensor,
+                      mask: Optional[torch.Tensor],
+                      positions: Optional[torch.Tensor],
+                      kv_cache: Optional[Params]) -> torch.Tensor:
+    """``positions`` as given, else the RoPE positions of the L tokens:
+    the running count of valid tokens under ``mask`` (0 .. L-1 without
+    one), offset by the cache's cursor (per row for [B] cursors)."""
+    if positions is not None:
+        return positions
+    B, L, _ = inputs_embeds.shape
+    if mask is not None:
+        positions = torch.clamp(
+            torch.cumsum(mask.to(torch.int32), dim=-1) - 1, min=0)
+    else:
+        positions = torch.arange(L, dtype=torch.int32,
+                                 device=inputs_embeds.device).expand(B, L)
+    if kv_cache is not None:
+        t0 = kv_cache["len"]
+        positions = positions + (t0[:, None] if per_row(t0) else t0)
+    return positions
+
+
+def mark_slots(kv_cache: Params, mask: Optional[torch.Tensor],
+               L: int) -> None:
+    """Mark the cache slots of L new tokens at the cursor valid (or as
+    ``mask`` says), per row for [B] cursors; a shared cursor that would
+    run past the cache raises."""
+    t0 = kv_cache["len"]
+    S = kv_cache["k"].shape[2]
+    valid = True if mask is None else mask.to(torch.bool)
+    if per_row(t0):
+        rows, slots = _row_slots(t0, L, S)
+        kv_cache["mask"][rows, slots] = valid
+    else:
+        if t0 + L > S:
+            raise ValueError(f"KV cache overflow: {t0} + {L} > {S} slots")
+        kv_cache["mask"][:, t0:t0 + L] = valid
 
 
 def llama_forward(params: Params, cfg: LlamaConfig,
@@ -349,17 +402,7 @@ def llama_forward(params: Params, cfg: LlamaConfig,
     if chunk_attn_mask is not None and kv_cache is None:
         raise ValueError("chunk_attn_mask requires a kv_cache (tree chunks "
                          "verify against an existing context)")
-    B, L, _ = inputs_embeds.shape
-    if positions is None:
-        if mask is not None:
-            positions = torch.clamp(
-                torch.cumsum(mask.to(torch.int32), dim=-1) - 1, min=0)
-        else:
-            positions = torch.arange(L, dtype=torch.int32,
-                                     device=inputs_embeds.device).expand(B, L)
-        if kv_cache is not None:
-            t0 = kv_cache["len"]
-            positions = positions + (t0[:, None] if per_row(t0) else t0)
+    positions = default_positions(inputs_embeds, mask, positions, kv_cache)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
 
@@ -372,22 +415,12 @@ def llama_forward(params: Params, cfg: LlamaConfig,
                            attn_impl, mesh)
     else:
         t0 = kv_cache["len"]
-        S = kv_cache["k"].shape[2]
-        if per_row(t0):
-            rows, slots = _row_slots(t0, L, S)
-            kv_cache["mask"][rows, slots] = (
-                True if mask is None else mask.to(torch.bool))
-        else:
-            if t0 + L > S:
-                raise ValueError(f"KV cache overflow: {t0} + {L} > {S} "
-                                 "slots")
-            kv_cache["mask"][:, t0:t0 + L] = (
-                True if mask is None else mask.to(torch.bool))
+        mark_slots(kv_cache, mask, inputs_embeds.shape[1])
         for i, p in enumerate(per_layer):
             h = _cached_layer(h, p, cos, sin, kv_cache, i, t0,
                               kv_cache["mask"], cfg, attn_impl,
                               chunk_attn_mask, mesh)
-        kv_cache["len"] = t0 + L
+        kv_cache["len"] = t0 + inputs_embeds.shape[1]
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if return_hidden:
@@ -412,9 +445,20 @@ def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
     ``mm(h, lm_head)`` + :func:`cross_entropy_loss`, but each ``chunk`` of
     positions is checkpointed, so the full fp32 [B, L, vocab] logits and
     their gradient never exist at once (the backward re-runs one chunk's
-    lm_head matmul at a time). Returns (loss, preds [B, L]); under a
-    ``mesh`` the loss is the global batch's (``global_mean``)."""
-    lm_head = gather(lm_head, mesh)
+    lm_head matmul at a time). ``lm_head`` is a matrix (dense or
+    quantized) or Phi's biased ``{"kernel", "bias"}``. Returns (loss,
+    preds [B, L]); under a ``mesh`` the loss is the global batch's
+    (``global_mean``)."""
+    if isinstance(lm_head, dict) and "kernel" in lm_head:
+        kernel, bias = gather(lm_head["kernel"], mesh), lm_head["bias"]
+
+        def head(hb):
+            return mm(hb, kernel) + bias
+    else:
+        lm_head = gather(lm_head, mesh)
+
+        def head(hb):
+            return mm(hb, lm_head)
     B, L, _ = h.shape
     shifted = torch.cat([labels[:, 1:], torch.full(
         (B, 1), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)],
@@ -425,7 +469,7 @@ def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
         shifted = F.pad(shifted, (0, pad), value=IGNORE_INDEX)
 
     def one_block(hb, lb):
-        logits = mm(hb, lm_head).float()
+        logits = head(hb).float()
         return (*_nll_sum(logits, lb),
                 logits.argmax(dim=-1).to(torch.int32))
 

@@ -18,10 +18,15 @@ policy from:
    and ``dataset_statistics.json`` or ``norm_stats`` in ``config.json``
    for un-normalizing actions.
 
-A checkpoint's tensors are read through a map of its files and each
-leaf is converted straight onto the device, so the host holds no second
-copy of the tree. ``quantize="int8"|"int4"`` quantizes the decoder's
-matmul weights and the lm_head. From a checkpoint the tree is converted
+Every registered id builds (``models/materialize.py``: the Prismatic
+towers and the Llama-2 7B / 13B, Mistral-7B and Phi-2 decoders). A
+reference ``.pt`` holds a Llama-family decoder (``convert_hf_llama``), as
+the JAX package's loader reads it; Phi weights come in through
+``phi.convert_hf_phi``. A checkpoint's tensors are read through a map of
+its files and each leaf is converted straight onto the device, so the
+host holds no second copy of the tree. ``quantize="int8"|"int4"``
+quantizes the decoder's matmul weights and the lm_head (Phi's lm_head
+kernel). From a checkpoint the tree is converted
 on the host, and each stacked leaf moves to the device one layer at a
 time and is quantized there, so the device never holds a dense stacked
 leaf beside the quantized tree (the JAX package quantizes on the host;
@@ -46,8 +51,8 @@ from emmax_torch.models.safetensors_io import load_dir
 from emmax_torch.models.vlm import VLMConfig, init_vlm_params, tiny_vlm_config
 from emmax_torch.ops.image import ImageTransformConfig
 from emmax_torch.serving.engine import resolve_device
-from emmax_torch.serving.quant import (QUANT_KEYS, quantize_vlm_params,
-                                       weight_quantizer)
+from emmax_torch.serving.quant import (QUANT_KEYS, quantize_lm_head,
+                                       quantize_vlm_params, weight_quantizer)
 from emmax_torch.training.checkpointing import STATE_FILE, CheckpointManager
 from emmax_torch.vla.tokenizer import load_tokenizer
 
@@ -189,7 +194,7 @@ def place_params(host: dict, device, quantize: str) -> dict:
     for key in QUANT_KEYS:
         if key in layers:
             layers[key] = _quantize_layers(layers.pop(key), device, qfn)
-    lm_head = qfn(llm.pop("lm_head").to(device))
+    lm_head = quantize_lm_head(move(llm.pop("lm_head")), qfn)
     return {"vision": move(host["vision"]),
             "projector": move(host["projector"]),
             "llm": {**move(llm), "layers": move(layers), "lm_head": lm_head}}

@@ -1,7 +1,6 @@
 """Model ids the port loads, port of ``emmax_tpu/models/registry.py``:
 one entry per VLM id of ``conf/models.py`` (its backbones), plus the tiny
-test config. Loading an id whose backbones the port does not build raises
-in ``models/materialize.py``."""
+test config; ``models/materialize.py`` builds each id's backbones."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Vision transformers (DINOv2 with registers, SigLIP), port of
-``emmax_tpu/models/vit.py``.
+"""Vision transformers (DINOv2 with registers, SigLIP, CLIP, IN1K), port
+of ``emmax_tpu/models/vit.py``.
 
 - patch embedding is a reshape plus one matmul (a stride-p convolution);
 - the feature contract is TIMM's ``get_intermediate_layers(n={depth-2})``:
@@ -7,7 +7,12 @@
   class and register tokens stripped;
 - DINOv2's embedding order: pos-embed over [cls | patches], registers
   spliced in after the pos add;
-- layer norm statistics in fp32, exact GELU (DINOv2) or tanh GELU (SigLIP);
+- CLIP: a LayerNorm before the blocks (``pre_norm``) and quick GELU
+  ``x * sigmoid(1.702 x)``;
+- layer norm statistics in fp32, exact GELU (DINOv2, IN1K) or tanh GELU
+  (SigLIP);
+- a resolution the patch does not divide (384 px at patch 14) takes the
+  top-left ``grid * patch`` pixels (27 x 27 patches over 378 px);
 - dtypes follow JAX's promotion: f32 pixels against bf16 weights run the
   tower in f32 (each weight is upcast where it is used);
 - under a ``mesh`` the params are this rank's blocks and each block's
@@ -46,7 +51,9 @@ class ViTConfig:
     layerscale: bool = False
     ls_init: float = 1e-5
     gelu_tanh: bool = False        # SigLIP uses gelu_pytorch_tanh
+    quick_gelu: bool = False       # CLIP uses x * sigmoid(1.702 x)
     norm_eps: float = 1e-6
+    pre_norm: bool = False         # CLIP applies a LN before the blocks
 
     @property
     def grid(self) -> int:
@@ -71,13 +78,23 @@ DINOV2_L_REG4 = ViTConfig(dim=1024, depth=24, n_heads=16, hidden_dim=4096,
 SIGLIP_SO400M = ViTConfig(dim=1152, depth=27, n_heads=16, hidden_dim=4304,
                           class_token=False, num_reg_tokens=0,
                           layerscale=False, gelu_tanh=True)
+# The other Prismatic towers (CLIP, the 384 px towers, IN1K at patch 16).
+CLIP_L = ViTConfig(dim=1024, depth=24, n_heads=16, hidden_dim=4096,
+                   class_token=True, pre_norm=True, quick_gelu=True,
+                   norm_eps=1e-5)
+CLIP_L_336 = dataclasses.replace(CLIP_L, img_size=336)
+SIGLIP_SO400M_384 = dataclasses.replace(SIGLIP_SO400M, img_size=384)
+DINOV2_L_REG4_384 = dataclasses.replace(DINOV2_L_REG4, img_size=384)
+IN1K_L = ViTConfig(img_size=224, patch_size=16, dim=1024, depth=24,
+                   n_heads=16, hidden_dim=4096, class_token=True)
 
 
 def init_vit_params(generator: torch.Generator, cfg: ViTConfig,
                     dtype: torch.dtype = torch.float32,
                     device="cpu") -> Params:
     """Random init with the JAX package's distributions (normal 0.02,
-    zero biases, unit norms, layerscale at ``ls_init``)."""
+    zero biases, unit norms, layerscale at ``ls_init``; CLIP's pre-norm
+    at unit scale and zero bias)."""
     def normal(*shape):
         return torch.empty(shape, dtype=dtype, device=device).normal_(
             0.0, 0.02, generator=generator)
@@ -106,6 +123,8 @@ def init_vit_params(generator: torch.Generator, cfg: ViTConfig,
     if cfg.layerscale:
         params["blocks"]["ls1"] = full(cfg.ls_init, L, D)
         params["blocks"]["ls2"] = full(cfg.ls_init, L, D)
+    if cfg.pre_norm:
+        params["pre_norm"] = {"scale": full(1, D), "bias": full(0, D)}
     return params
 
 
@@ -142,6 +161,9 @@ def _embed(params: Params, cfg: ViTConfig, images: torch.Tensor,
                                           cfg.dim).to(x.dtype)
         n_lead = 1 if cfg.class_token else 0
         x = torch.cat([x[:, :n_lead], reg, x[:, n_lead:]], dim=1)
+    if cfg.pre_norm:
+        x = layer_norm(x, params["pre_norm"]["scale"],
+                       params["pre_norm"]["bias"], cfg.norm_eps)
     return x
 
 
@@ -160,7 +182,10 @@ def _block(h: torch.Tensor, p: Params, cfg: ViTConfig,
     h = h + attn
     x = layer_norm(h, p["norm2_scale"], p["norm2_bias"], cfg.norm_eps)
     x = linear(x, p["w1"], p["b1"])
-    x = F.gelu(x, approximate="tanh" if cfg.gelu_tanh else "none")
+    if cfg.quick_gelu:
+        x = x * torch.sigmoid(1.702 * x)
+    else:
+        x = F.gelu(x, approximate="tanh" if cfg.gelu_tanh else "none")
     x = linear(x, p["w2"], p["b2"])
     if cfg.layerscale:
         x = x * p["ls2"].to(x.dtype)

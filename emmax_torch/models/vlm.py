@@ -1,11 +1,14 @@
-"""Prismatic-style VLM: fused vision towers + projector + Llama decoder.
+"""Prismatic-style VLM: fused vision towers + projector + decoder (the
+Llama family or Phi).
 
 Port of ``emmax_tpu/models/vlm.py``: the towers run on their own
 normalized images, their features are concatenated on channels and
 projected, and the patch embeddings are spliced after each row's BOS
 (``fuse_multimodal``) before the decoder runs. ``vlm_forward`` is the
 training forward (labels, masked CE, remat, chunked CE);
-``text_forward`` the unimodal one.
+``text_forward`` the unimodal one. The decoder is picked by the type of
+``cfg.llm`` (``llm_apply``): ``LlamaConfig`` for Llama-2 and Mistral,
+``PhiConfig`` for Phi-2.
 
 Every forward takes ``mesh=None``: under a ``DeviceMesh`` the params are
 this rank's blocks (``parallel.shard_params``), weights are gathered
@@ -16,7 +19,7 @@ where they are used, and the loss is the global batch's
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -25,6 +28,7 @@ from emmax_torch.models.llama import (IGNORE_INDEX, LLAMA2_7B, Llama,
                                       LlamaConfig, chunked_ce_loss_and_preds,
                                       cross_entropy_loss, embed_tokens,
                                       init_llama_params, llama_forward)
+from emmax_torch.models.phi import Phi, PhiConfig, init_phi_params, phi_forward
 from emmax_torch.models.projector import (Projector, init_projector_params,
                                           projector_forward)
 from emmax_torch.models.vit import (DINOV2_L_REG4, SIGLIP_SO400M, ViT,
@@ -38,7 +42,7 @@ class VLMConfig:
     """Static architecture description (towers as ordered (name, cfg))."""
 
     vision: Tuple[Tuple[str, ViTConfig], ...]
-    llm: LlamaConfig
+    llm: Union[LlamaConfig, PhiConfig]
     arch_specifier: str = "no-align+fused-gelu-mlp"
 
     @property
@@ -64,16 +68,28 @@ def init_vlm_params(generator: torch.Generator, cfg: VLMConfig,
         "projector": init_projector_params(generator, cfg.arch_specifier,
                                            cfg.vision_dim, cfg.llm.dim,
                                            dtype, device),
-        "llm": init_llama_params(generator, cfg.llm, dtype, device),
+        "llm": _decoder(cfg.llm).init(generator, cfg.llm, dtype, device),
     }
 
 
-def llm_apply(params: Params, llm_cfg: LlamaConfig,
-              inputs_embeds: torch.Tensor, **kw):
-    """Decoder dispatch by config type (the Llama family in this port)."""
-    if not isinstance(llm_cfg, LlamaConfig):
-        raise TypeError(f"unsupported decoder config {type(llm_cfg)}")
-    return llama_forward(params, llm_cfg, inputs_embeds, **kw)
+class _Decoder(NamedTuple):
+    init: Callable
+    forward: Callable
+    module: type
+
+
+def _decoder(llm_cfg) -> _Decoder:
+    """The decoder that ``llm_cfg`` describes: Phi for a ``PhiConfig``,
+    else the Llama family."""
+    if isinstance(llm_cfg, PhiConfig):
+        return _Decoder(init_phi_params, phi_forward, Phi)
+    return _Decoder(init_llama_params, llama_forward, Llama)
+
+
+def llm_apply(params: Params, llm_cfg, inputs_embeds: torch.Tensor, **kw):
+    """Decoder dispatch by config type: ``llama_forward`` for a
+    ``LlamaConfig``, ``phi_forward`` for a ``PhiConfig``."""
+    return _decoder(llm_cfg).forward(params, llm_cfg, inputs_embeds, **kw)
 
 
 def encode_tower_features(params: Params, cfg: VLMConfig,
@@ -253,7 +269,7 @@ class VLM(nn.Module):
         self.vision = nn.ModuleDict({name: ViT(vcfg, params["vision"][name])
                                      for name, vcfg in cfg.vision})
         self.projector = Projector(params["projector"])
-        self.llm = Llama(cfg.llm, params["llm"])
+        self.llm = _decoder(cfg.llm).module(cfg.llm, params["llm"])
 
     def tree(self) -> Params:
         """The weights as the nested dict the functional passes take."""

@@ -136,11 +136,14 @@ def transform_configs_for_backbone(vision_backbone_id: str,
                                    size: int = 224
                                    ) -> Dict[str, ImageTransformConfig]:
     """Per-tower transforms for every Prismatic vision backbone id (the
-    size from the id: 336 for CLIP-336, 384 for the 384 px towers)."""
+    size from the id: 336 for the CLIP-336 and DINO + CLIP-336 towers, 384
+    for the 384 px towers). The JAX package gives DINO + CLIP-336 224 px
+    images, which its 336 px towers cannot take."""
     if vision_backbone_id.startswith("dinosiglip"):
         size = 384 if "384" in vision_backbone_id else size
         return dinosiglip_transform_configs(size, resize_strategy)
     if vision_backbone_id.startswith("dinoclip"):
+        size = 336 if "336" in vision_backbone_id else size
         return {"dino": ImageTransformConfig(size, resize_strategy,
                                              IMAGENET_MEAN, IMAGENET_STD),
                 "clip": ImageTransformConfig(size, resize_strategy,

@@ -1,6 +1,8 @@
 """Rotary position embeddings (Llama "rotate_half"), port of
 ``emmax_tpu/ops/rope.py``: frequencies ``theta^(-2i/d)``, cos/sin in fp32,
-applied as ``x*cos + rotate_half(x)*sin``.
+applied as ``x*cos + rotate_half(x)*sin``. Phi-2 rotates only the first
+``rotary_dim`` channels of each head (``apply_partial_rope``, the JAX
+package's ``models/phi._apply_partial_rope``).
 """
 
 from __future__ import annotations
@@ -32,3 +34,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[..., :, None, :]
     s = sin[..., :, None, :]
     return (xf * c + rotate_half(xf) * s).to(dtype)
+
+
+def apply_partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                       rotary_dim: int) -> torch.Tensor:
+    """Rotate the first ``rotary_dim`` channels of each head in fp32 and
+    pass the rest through; cos/sin [..., L, rotary_dim] come from
+    ``rope_cos_sin(positions, rotary_dim)``."""
+    rot = apply_rope(x[..., :rotary_dim], cos, sin)
+    return torch.cat([rot, x[..., rotary_dim:]], dim=-1)

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from emmax_torch.models.llama import embed_tokens, layer_slice, mm
+from emmax_torch.models.llama import (LlamaConfig, embed_tokens,
+                                      layer_slice, mm)
 from emmax_torch.models.vlm import VLMConfig, fuse_multimodal
 from emmax_torch.ops.attention import multi_head_attention
 from emmax_torch.ops.norms import rms_norm
@@ -613,6 +614,9 @@ class PagedServingEngine:
                  quantized_cache: bool = False,
                  uniform_burst_writes: bool = True, device="cuda") -> None:
         self.device = resolve_device(device)
+        if not isinstance(cfg.llm, LlamaConfig):
+            raise TypeError(f"the paged engine runs the Llama family only, "
+                            f"as in the JAX package; got {type(cfg.llm)}")
         embed = params["llm"]["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"weights are on {embed.device}, the engine on "

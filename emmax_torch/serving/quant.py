@@ -1,6 +1,7 @@
 """Weight-only quantization for serving, port of ``emmax_tpu/serving/quant.py``.
 
-The decoder's matmul weights and the lm_head are quantized: int8
+The decoder's matmul weights and the lm_head (a matrix, or Phi's
+``{"kernel", "bias"}`` whose kernel is quantized) are quantized: int8
 per-output-channel (``{"q8", "scale"}``) or nibble-packed group-wise int4
 (``{"q4", "scale"}``, ``ops/int4_matmul``). The embedding table is
 gathered, not streamed, and stays as it is; so do the norms. Quantization
@@ -16,8 +17,9 @@ import torch
 
 from emmax_torch.ops.int4_matmul import DEFAULT_GROUP, quantize_weight_int4
 
-# llama-family matmul weights; biases and norms are never quantized
-QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# llama-family (w_gate/w_up/w_down) and phi-family (w1/w2) matmul
+# weights; biases and norms are never quantized
+QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w1", "w2")
 
 
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -38,6 +40,16 @@ def weight_quantizer(bits: int, group: int = DEFAULT_GROUP) -> Callable:
     raise ValueError(f"bits must be 4 or 8, got {bits}")
 
 
+def quantize_lm_head(lm_head, qfn: Callable):
+    """A dense lm_head quantized by ``qfn``; Phi's ``{"kernel", "bias"}``
+    with its kernel quantized; an already quantized head as it is."""
+    if isinstance(lm_head, dict):
+        if "kernel" in lm_head and not isinstance(lm_head["kernel"], dict):
+            return {**lm_head, "kernel": qfn(lm_head["kernel"])}
+        return lm_head
+    return qfn(lm_head)
+
+
 def quantize_vlm_params(params: Dict[str, Any], bits: int = 8,
                         group: Optional[int] = None) -> Dict[str, Any]:
     """The VLM tree with its decoder's matmul weights and lm_head quantized
@@ -55,6 +67,5 @@ def quantize_vlm_params(params: Dict[str, Any], bits: int = 8,
         if key in layers and not isinstance(layers[key], dict):
             layers[key] = qfn(layers[key])
     llm["layers"] = layers
-    if not isinstance(llm["lm_head"], dict):
-        llm["lm_head"] = qfn(llm["lm_head"])
+    llm["lm_head"] = quantize_lm_head(llm["lm_head"], qfn)
     return {**params, "llm": llm}

@@ -167,7 +167,7 @@ def test_config_json_shapes_resolve_like_jax(shape, model_id):
             == j_load._model_cfg_from_json(blob))
 
 
-def test_every_model_id_resolves_and_unbuilt_backbones_raise():
+def test_every_model_id_resolves_and_unbuilt_backbones_raise(tmp_path):
     from emmax_torch.conf.models import ModelConfig as TorchModelConfig
     from emmax_torch.models.registry import MODEL_REGISTRY
     from emmax_tpu.conf import ModelConfig
@@ -178,10 +178,18 @@ def test_every_model_id_resolves_and_unbuilt_backbones_raise():
         want = ModelConfig.get_choice_class(mid)()
         got = TorchModelConfig.get_choice_class(mid)()
         assert vars(got) == vars(want), mid
-    with pytest.raises(KeyError, match="clip-vit-l-336px"):
-        t_load.load("llama2+7b", device="cpu")
-    with pytest.raises(KeyError, match="vicuna-v15-7b"):
-        t_load.load("dinosiglip-224px-resize-naive+7b", device="cpu")
+        # every id's backbones build (tests/test_torch_zoo_materialize.py
+        # holds the configs to JAX's)
+        t_load.build_vlm(got.vision_backbone_id, got.llm_backbone_id,
+                         got.arch_specifier)
+    # a backbone no registry knows still raises, naming it
+    (tmp_path / "config.json").write_text(json.dumps({"model": {
+        **TINY_IDS, "vision_backbone_id": "clip-vit-h",
+        "llm_backbone_id": "llama2-7b-pure"}}))
+    with pytest.raises(KeyError, match="clip-vit-h"):
+        t_load.load(tmp_path, device="cpu")
+    with pytest.raises(KeyError, match="neither a directory"):
+        t_load.load("llama2+70b", device="cpu")
 
 
 def _port_run_dir(d, cfg, params, dtype=torch.float32):

@@ -46,6 +46,7 @@ FLASH = [  # (B, Lq, S, H, D, causal, q_offset, pad)
     (2, 130, 200, 4, 128, True, 0, 17),
     (2, 33, 90, 2, 100, True, 40, 5),
     (1, 70, 70, 2, 128, True, 0, 70),      # every row fully masked
+    (1, 610, 768, 32, 80, True, 0, 31),    # Phi-2's prefill: H 32, D 80
 ]
 
 
@@ -126,6 +127,7 @@ BWD_TC = [
     (2, 75, 75, 3, 72, True, 0, 5, 3, "qkv"),       # D 72 -> 80
     (2, 70, 110, 2, 100, False, 0, 9, 0, "contig"),  # D 100 -> 112
     (2, 33, 33, 2, 64, True, 0, 33, 0, "qkv"),      # row 0 sees no key
+    (2, 331, 331, 32, 80, True, 0, 0, 19, "qkv"),   # Phi-2's step, D 80
 ]
 
 
@@ -230,6 +232,11 @@ FWD_TF32 = [
     (1, 75, 75, 2, 128, True, 0, 0, 0, "odd"),
     (2, 70, 110, 2, 100, False, 0, 9, 0, "contig"),
     (2, 33, 33, 2, 72, True, 0, 33, 0, "qkv"),
+    # the zoo's towers: CLIP-336 577 tokens (D 64), SigLIP-384 729 (D 72)
+    # and DINOv2-384 734 (D 64)
+    (1, 577, 577, 16, 64, False, 0, 0, 0, "qkv"),
+    (1, 729, 729, 16, 72, False, 0, 0, 0, "qkv"),
+    (1, 734, 734, 4, 64, False, 0, 0, 0, "contig"),
 ]
 
 
@@ -443,6 +450,72 @@ def test_int4_tensor_cores_match_plain(dev, case):
     odd = buf[1:].view(M, D)
     odd.copy_(x)
     assert torch.equal(im.int4_matmul_cuda(odd, q4, scale), got)
+
+
+# the zoo's int4 decoder weights (M, D, F), each at decode (M 1) and at
+# a prefill's rows (768: CLIP-L/336's 576 patches and a 192-token bucket;
+# 609 and 325: shorter prompts): Phi-2's wq / wk / wv / wo, w1, w2 and
+# lm_head (with their biases), Mistral's wq / wo, wk / wv (4096 -> 1024,
+# grouped-query attention), w_gate / w_up, w_down and lm_head
+INT4_ZOO = [(1, 2560, 10240), (1, 10240, 2560), (1, 2560, 51200),
+            (609, 2560, 10240), (609, 10240, 2560), (1, 4096, 1024),
+            (325, 4096, 1024),
+            (1, 2560, 2560), (768, 2560, 2560), (768, 2560, 10240),
+            (768, 10240, 2560), (768, 2560, 51200), (768, 4096, 4096),
+            (768, 4096, 1024), (1, 4096, 14336), (768, 4096, 14336),
+            (1, 14336, 4096), (768, 14336, 4096), (1, 4096, 32064),
+            (768, 4096, 32064)]
+
+
+@pytest.mark.parametrize("case", INT4_ZOO, ids=[str(c) for c in INT4_ZOO])
+def test_int4_zoo_shapes_with_bias_match_plain(dev, case):
+    """Phi's biased linear (``models/phi._linear``: the int4 kernel, then
+    the bias) against the plain product plus the bias (2e-2) and the
+    exact product plus the bias (two bf16 roundings: the kernel's output,
+    then the sum)."""
+    from emmax_torch.models.phi import _linear
+    from emmax_torch.ops import int4_matmul as im
+
+    M, D, F = case
+    g = torch.Generator(dev).manual_seed(5)
+    w = torch.randn(2, D, F, device=dev, generator=g) * 0.02
+    qw = im.quantize_weight_int4(w)
+    del w
+    x = torch.randn(M, D, device=dev, generator=g).bfloat16()
+    b = (torch.randn(F, device=dev, generator=g) * 0.1).bfloat16()
+    before = im.KERNEL.launches
+    got = _linear(x, {**qw, "layer": 1}, b)
+    assert im.KERNEL.launches == before + 1 and got.dtype == torch.bfloat16
+    q4, scale = qw["q4"][1], qw["scale"][1]
+    _close(got, im.int4_matmul_reference(x, q4, scale) + b, 2e-2)
+    prod = _int4_exact(x, q4, scale)
+    exact = prod + b.double()
+    slack = (2 ** -8 * (prod.abs() + exact.abs())
+             + 1e-6 * exact.abs().max())
+    assert bool(((got.double() - exact).abs() <= slack).all())
+
+
+def test_gqa_prefill_repeats_kv_into_the_kernel(dev):
+    """Mistral's prefill: 32 query heads on 8 KV heads; ``multi_head_
+    attention`` repeats K/V per query head and launches the bf16 kernel
+    once, within 2e-2 of the plain path (which repeats them too)."""
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops.attention import multi_head_attention, xla_attention
+
+    g = torch.Generator(dev).manual_seed(6)
+    B, L, S, H, KV, D = 1, 333, 512, 32, 8, 128
+    q = torch.randn(B, L, H, D, device=dev, generator=g).bfloat16()
+    k, v = (torch.randn(B, S, KV, D, device=dev, generator=g).bfloat16()
+            for _ in range(2))
+    mask = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    mask[:, 13:L] = True
+    kw = dict(kv_mask=mask, causal=True, q_offset=0)
+    before = fa.KERNEL.launches
+    got = multi_head_attention(q, k, v, impl="cuda", **kw)
+    assert fa.KERNEL.launches == before + 1
+    want = xla_attention(q, k, v, **kw)
+    live = mask[0, :L]
+    _close(got[:, live], want[:, live], 2e-2)
 
 
 def test_quantizer_on_card_matches_cpu(dev):

@@ -1,6 +1,8 @@
 """The port stands alone: ``emmax_torch`` imports neither JAX nor
-``ml_dtypes`` nor anything of ``emmax_tpu``; the weight bridge keeps every
-byte; nothing silently runs on the CPU when the card is asked for."""
+``ml_dtypes`` nor anything of ``emmax_tpu``, and importing it loads none
+of ``transformers``, ``tensorflow``, OpenCV or PIL (the card machine has
+none of them); the weight bridge keeps every byte; nothing silently runs
+on the CPU when the card is asked for."""
 
 import re
 import subprocess
@@ -27,7 +29,8 @@ def test_import_loads_no_jax():
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
-            " in ('jax', 'jaxlib', 'ml_dtypes', 'emmax_tpu'))))\n")
+            " in ('jax', 'jaxlib', 'ml_dtypes', 'emmax_tpu', 'transformers',"
+            " 'tensorflow', 'cv2', 'PIL'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
@@ -54,7 +57,9 @@ def test_import_loads_no_jax():
             "emmax_torch.ops.ring_attention", "emmax_torch.pretrain",
             "emmax_torch.training.vision_cache", "emmax_torch.util",
             "emmax_torch.util.batching",
-            "emmax_torch.conf.datasets"} <= set(MODULES)
+            "emmax_torch.conf.datasets", "emmax_torch.models.phi",
+            "emmax_torch.models.materialize", "emmax_torch.models.vit",
+            "emmax_torch.models.vlm", "emmax_torch.ops.rope"} <= set(MODULES)
 
 
 def test_pretrain_modules_import_no_opencv():

@@ -177,24 +177,25 @@ def test_transforms_for_every_backbone_equal_jax():
             want = j_image.transform_configs_for_backbone(vid, resize)
             assert got.keys() == want.keys(), vid
             for k in want:
-                assert got[k].__dict__ == want[k].__dict__, (vid, k)
+                w = dict(want[k].__dict__)
+                if vid.startswith("dinoclip"):
+                    # the port mends JAX's 224 px: both towers take 336 px
+                    w["size"] = 336
+                assert got[k].__dict__ == w, (vid, k)
     got = t_mat.get_image_transforms("dinosiglip-vit-so-224px", "letterbox")
     want = j_mat.get_image_transforms("dinosiglip-vit-so-224px", "letterbox")
     assert {k: v.__dict__ for k, v in got.items()} == \
         {k: v.__dict__ for k, v in want.items()}
-    with pytest.raises(KeyError, match="it builds"):
-        t_mat.get_image_transforms("clip-vit-l-336px", "letterbox")
-    with pytest.raises(KeyError, match="it builds"):
-        t_mat.get_vlm_config("reproduction-llava-v15+7b")
+    with pytest.raises(KeyError, match="unknown vision backbone"):
+        t_mat.get_image_transforms("no-such-backbone", "letterbox")
     got = t_mat.get_vlm_config("prism-dinosiglip-224px+7b")
     want = j_mat.get_vlm_config("prism-dinosiglip-224px+7b")
     assert got.arch_specifier == want.arch_specifier
     assert got.num_patches == want.num_patches == 256
     assert got.vision_dim == want.vision_dim == 2176
-    # the port's configs carry the fields of the backbones it builds
     assert [n for n, _ in got.vision] == [n for n, _ in want.vision]
     for (_, g), (_, w) in zip(got.vision, want.vision):
-        assert g.__dict__.items() <= w.__dict__.items()
+        assert g.__dict__ == w.__dict__
     assert got.llm.__dict__ == want.llm.__dict__
 
 
