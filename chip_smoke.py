@@ -170,6 +170,26 @@ Phases, each raising on failure (the script then exits non-zero):
    ms, the bf16 fence's verdict, and the same tokens or, at the first
    difference, a printed near-tie (``free_run``).
 
+12b. ``rlds``: the RLDS data path with no TensorFlow, OpenCV or PIL:
+   ``RLDS_EPISODES`` synthetic BridgeV2-shaped episodes (24-40 steps of
+   256x256 frames encoded by the port's JPEG encoder at quality 95,
+   proprio and actions of width 7 with a 0/1 gripper) written by the
+   port's TFRecord writer into a train and a val shard; one state at
+   vla-train's cut and batch drives (a) ``RLDS_GCOT_STEPS`` steps of
+   ``run_discrete_vla_training`` over ``GCOTDataset`` records keyed to the
+   episodes' frames through ``RLDSFrameSource`` (IFAST decode), and (b)
+   ``RLDS_VLA_STEPS`` steps of ``run_vla_training`` over
+   ``get_vla_dataset_and_collator(..., "bridge_orig", image_aug=True,
+   resize_resolution=(224, 224))`` through ``StreamingBatcher`` and the
+   prefetching loader, with a Solver eval; each loop's losses finite and
+   each training kernel launched; then ``pack_rlds_to_framestore`` with
+   every stored frame (ISLOW) equal to the RLDS frame decoded with ISLOW,
+   and two passes of the stream with one seed giving equal batches.
+   Printed: frames decoded per second on one thread and by the store's
+   batch decode, host ms to assemble a batch against the step's ms, and
+   each step's wait for data. No checkpoint is written. 25-35 s on
+   the H100.
+
 13. ``multigpu``: the multi-GPU path (``emmax_torch.parallel``) at world
    size 1: a NCCL process group of one rank joined in-process
    (``initialize_distributed``, 127.0.0.1 and a free port) and the (1, 1,
@@ -294,6 +314,11 @@ PT_CACHE_RTOL = 1e-6
 # kernels on the same tensors: 0 expected); vla-train steps through the mesh
 MESH_RTOL = 1e-6
 MESH_VLA_STEPS = 2
+# rlds: synthetic BridgeV2-shaped episodes (256x256 JPEG at quality 95,
+# proprio and actions of width 7), a train and a val shard, at vla-train's
+# cut and batch
+RLDS_EPISODES, RLDS_VAL, RLDS_STEPS_RANGE = 8, 2, (24, 40)
+RLDS_GCOT_STEPS, RLDS_VLA_STEPS, RLDS_SHUFFLE = 2, 3, 64
 # zoo: the Prismatic backbones beyond Emma-X's (emmax_torch/models/
 # materialize.py): the new vision backbones' encodes, phi-2+3b served and
 # trained, llama2+13b and mistral-v0.1+7b served; ZOO_NEW new tokens a
@@ -2961,6 +2986,276 @@ def vla_train_phase(dev, kernels):
     return out
 
 
+def rlds_write_episodes(root) -> dict:
+    """The phase's TFRecord shards: BridgeV2-shaped episodes of a moving
+    square on a per-episode gradient, JPEG-encoded by the port."""
+    from emmax_torch.data import codec, rlds
+
+    rng = np.random.default_rng(21)
+    y, x = np.mgrid[0:256, 0:256]
+    t0 = time.perf_counter()
+    n_frames = 0
+    for split, ids in (("train", range(RLDS_EPISODES - RLDS_VAL)),
+                       ("val", range(RLDS_EPISODES - RLDS_VAL,
+                                     RLDS_EPISODES))):
+        eps = []
+        for i in ids:
+            T = int(rng.integers(RLDS_STEPS_RANGE[0], RLDS_STEPS_RANGE[1] + 1))
+            base = np.stack([x * (i + 1) % 256, y, (x + y) // 2], -1)
+            frames = []
+            for t in range(T):
+                img = base.copy()
+                r0, c0 = 40 + 4 * t, 60 + 3 * t
+                img[r0:r0 + 48, c0:c0 + 48] = (200, 40 + 5 * i, 30)
+                img = img + rng.integers(-6, 7, img.shape)
+                frames.append(codec.encode_jpeg(
+                    np.clip(img, 0, 255).astype(np.uint8), 95))
+            n_frames += T
+            grip = (np.arange(T) // 8 % 2).astype(np.float32)
+            eps.append({
+                "image_bytes": frames,
+                "proprio": np.cumsum(rng.normal(0, 0.01, (T, 7)), 0),
+                "action": np.concatenate(
+                    [rng.normal(0, 0.02, (T, 6)), grip[:, None]], 1),
+                "language": f"put the block {i} in the pot",
+                "file_path": f"/data/bridge/raw/traj{i}",
+                "episode_id": i})
+        rlds.write_episodes(root / f"bridge_orig-{split}-00000.tfrecord", eps)
+    return {"episodes": RLDS_EPISODES, "frames": n_frames,
+            "bytes": sum(f.stat().st_size for f in root.iterdir()),
+            "write_s": time.perf_counter() - t0}
+
+
+def _waited(it, record: list):
+    """``it`` with the seconds each ``next`` blocked appended to
+    ``record``."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        record.append(time.perf_counter() - t0)
+        yield batch
+
+
+def rlds_phase(dev, kernels):
+    """The RLDS data path on the card at vla-train's cut: GCOT steps with
+    RLDS frames, OpenVLA RLDS steps, the frame store and determinism."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from emmax_torch.data import codec
+    from emmax_torch.data.collators import BatchLoader, collate_train
+    from emmax_torch.data.framestore import (FrameStore,
+                                             pack_rlds_to_framestore)
+    from emmax_torch.data.gcot import (GCOTDataset, key_items_to_frames,
+                                       make_dummy_gcot_items)
+    from emmax_torch.data.prefetch import PrefetchingLoader
+    from emmax_torch.data.rlds import RLDSFrameSource
+    from emmax_torch.data.rlds_vla import StreamingBatcher
+    from emmax_torch.models.materialize import get_image_transforms
+    from emmax_torch.models.vlm import emma_x_vlm_config, init_vlm_params
+    from emmax_torch.training.loop import (LoopConfig, make_eval_fn,
+                                           run_discrete_vla_training,
+                                           run_vla_training)
+    from emmax_torch.training.metrics import VLADiscreteMetrics
+    from emmax_torch.training.train_state import (create_train_state,
+                                                  make_optimizer,
+                                                  stage_from_flags,
+                                                  trainable_mask)
+    from emmax_torch.training.train_step import make_train_step
+    from emmax_torch.vla.action_tokenizer import ActionTokenizer
+    from emmax_torch.vla.materialize import get_vla_dataset_and_collator
+    from emmax_torch.vla.solver import Solver
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_rlds_"))
+    try:
+        data = rlds_write_episodes(tmp)
+        t0 = time.perf_counter()
+        codec.lib()
+        build_s = time.perf_counter() - t0      # 0 once the writer built it
+
+        base = emma_x_vlm_config()
+        cfg = dataclasses.replace(base, llm=dataclasses.replace(
+            base.llm, n_layers=VLA_LAYERS))
+        tokenizer = load_tokenizer(None)
+        at = ActionTokenizer(tokenizer)
+        gen = torch.Generator(dev)
+        gen.manual_seed(3)
+        params = init_vlm_params(gen, cfg, torch.float32, dev)
+        stage = stage_from_flags(True, False, False)
+        tx, schedule = make_optimizer(
+            params, learning_rate=2e-5, weight_decay=0.0, max_grad_norm=1.0,
+            lr_scheduler_type="constant",
+            total_steps=RLDS_GCOT_STEPS + RLDS_VLA_STEPS, stage=stage)
+        state = create_train_state(params, tx)
+        transforms = get_image_transforms("dinosiglip-vit-so-224px",
+                                          "resize-naive")
+        step_fn = make_train_step(
+            cfg, tx, attn_impl="cuda", remat=True,
+            compute_dtype=torch.bfloat16, transforms=transforms,
+            stop_vision_gradient=True,
+            freeze_mask=trainable_mask(params, stage),
+            action_vocab_size=tokenizer.vocab_size)
+        eval_fn = make_eval_fn(cfg, transforms=transforms, attn_impl="cuda",
+                               compute_dtype=torch.bfloat16)
+
+        def gate(name, metrics, launches, steps):
+            losses = list(metrics.deques["loss"])
+            if len(losses) != steps or not np.isfinite(losses).all():
+                raise AssertionError(f"rlds {name}: losses {losses}")
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if launches[k] == 0:
+                    raise AssertionError(f"rlds {name} launched no {k}")
+            return losses
+
+        # (a) Emma-X's GCOT loop with frames from the RLDS shards
+        t0 = time.perf_counter()
+        source = RLDSFrameSource(tmp)
+        index_s = time.perf_counter() - t0
+        items = key_items_to_frames(make_dummy_gcot_items(
+            RLDS_GCOT_STEPS * VLA_B), source.index)
+        dataset = GCOTDataset(items, at, tokenizer, source,
+                              data_mix="movement_policy", mask_inst=True)
+        loader = BatchLoader(dataset, VLA_B, lambda s: collate_train(
+            s, tokenizer.pad_id, max_length=cfg.llm.max_seq_len), seed=7)
+        gcot_wait: list = []
+        gcot_metrics = VLADiscreteMetrics([])
+        for k in kernels:
+            k.reset_counts()
+        t0 = time.perf_counter()
+        state = run_discrete_vla_training(
+            vlm_cfg=cfg, state=state, train_step=step_fn,
+            loader=_WaitedLoader(PrefetchingLoader(loader, dev), gcot_wait),
+            metrics=gcot_metrics,
+            loop_cfg=LoopConfig(epochs=1, max_steps=RLDS_GCOT_STEPS,
+                                eval_every=1000, save_every=1000,
+                                log_every=1), device=dev)
+        torch.cuda.synchronize(dev)
+        gcot_s = time.perf_counter() - t0
+        gcot_launches = {k.name: k.launches for k in kernels}
+        gcot_losses = gate("gcot", gcot_metrics, gcot_launches,
+                           RLDS_GCOT_STEPS)
+
+        # (b) OpenVLA's RLDS loop: augmented, resized, shuffled stream
+        def stream():
+            ds, collate = get_vla_dataset_and_collator(
+                tmp, "bridge_orig", at, tokenizer, image_aug=True,
+                resize_resolution=(224, 224),
+                shuffle_buffer_size=RLDS_SHUFFLE)
+            return ds, StreamingBatcher(ds, VLA_B, collate)
+
+        ds, batcher = stream()
+        vla_wait: list = []
+        vla_metrics = VLADiscreteMetrics([])
+        for k in kernels:
+            k.reset_counts()
+        t0 = time.perf_counter()
+        state = run_vla_training(
+            vlm_cfg=cfg, state=state, train_step=step_fn,
+            batch_iter=_waited(iter(PrefetchingLoader(batcher, dev).epoch(0)),
+                               vla_wait),
+            metrics=vla_metrics, max_steps=RLDS_VLA_STEPS,
+            loop_cfg=LoopConfig(eval_every=RLDS_VLA_STEPS, save_every=1000,
+                                log_every=1), device=dev,
+            tokenizer=tokenizer, solver=Solver(at), eval_fn=eval_fn)
+        torch.cuda.synchronize(dev)
+        vla_s = time.perf_counter() - t0
+        vla_launches = {k.name: k.launches for k in kernels}
+        vla_losses = gate("vla", vla_metrics, vla_launches, RLDS_VLA_STEPS)
+        if state.step != RLDS_GCOT_STEPS + RLDS_VLA_STEPS:
+            raise AssertionError(f"rlds: state at step {state.step}")
+        if "solver_action_accuracy" not in vla_metrics.deques:
+            raise AssertionError("rlds: no Solver eval ran")
+        del state, params, tx, step_fn, eval_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # host cost of a batch: a fresh stream, batches one after another
+        # (the first fills the shuffle buffer)
+        _, fresh = stream()
+        it = iter(fresh)
+        assemble_ms = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            next(it)
+            assemble_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # determinism: two passes of one stream give equal batches
+        passes = []
+        for _ in range(2):
+            it = iter(batcher)
+            passes.append([next(it) for _ in range(2)])
+        for a, b in zip(*passes):
+            for key in ("input_ids", "labels", "attention_mask", "images"):
+                if not np.array_equal(a[key], b[key]):
+                    raise AssertionError(f"rlds: two passes differ in {key}")
+
+        # the frame store: ISLOW frames equal the RLDS frames decoded so
+        t0 = time.perf_counter()
+        store = FrameStore(pack_rlds_to_framestore(tmp, tmp / "bridge.efs"))
+        pack_s = time.perf_counter() - t0
+        keys, idxs, blobs = [], [], []
+        for key in store.keys():
+            n, _, _ = store.traj_info(key)
+            for i in range(n):
+                keys.append(key)
+                idxs.append(i)
+                blobs.append(source.index[key][i])
+        for key, i, blob in zip(keys, idxs, blobs):
+            if not np.array_equal(store.get_frame(key, i),
+                                  codec.decode_jpeg(blob, "islow")):
+                raise AssertionError(f"rlds: store frame {key}[{i}] differs")
+        t0 = time.perf_counter()
+        for blob in blobs:
+            codec.decode_jpeg(blob, "ifast")
+        one_fps = len(blobs) / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        store.get_batch(keys, idxs)
+        batch_fps = len(blobs) / (time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gcot_steps = list(gcot_metrics.step_times)
+    vla_steps = list(vla_metrics.step_times)
+    out = {"phase": "rlds", **data, "decoder_layers": VLA_LAYERS,
+           "batch": VLA_B, "codec_build_s": build_s, "index_s": index_s,
+           "gcot": {"steps": RLDS_GCOT_STEPS, "losses": gcot_losses,
+                    "launches": gcot_launches, "loop_s": gcot_s,
+                    "step_s": gcot_steps,
+                    "data_wait_ms": [w * 1e3 for w in gcot_wait]},
+           "vla": {"steps": RLDS_VLA_STEPS, "losses": vla_losses,
+                   "launches": vla_launches, "loop_s": vla_s,
+                   "step_s": vla_steps,
+                   "data_wait_ms": [w * 1e3 for w in vla_wait],
+                   "solver_action_accuracy":
+                       list(vla_metrics.deques["solver_action_accuracy"])},
+           "assemble_batch_ms": assemble_ms,
+           "step_ms_median": float(np.median(vla_steps[1:] or vla_steps)
+                                   * 1e3),
+           "decode_fps_one_thread_ifast": one_fps,
+           "decode_fps_store_batch_islow": batch_fps,
+           "store_frames": len(blobs), "pack_s": pack_s,
+           "store_equals_rlds_islow": True, "passes_equal": True,
+           "phase_s": time.perf_counter() - t_phase}
+    log("rlds " + json.dumps(out))
+    return out
+
+
+class _WaitedLoader:
+    """A loader whose epochs record each batch's wait (``_waited``)."""
+
+    def __init__(self, loader, record: list) -> None:
+        self.loader, self.record = loader, record
+
+    def epoch(self, epoch: int = 0):
+        return _waited(iter(self.loader.epoch(epoch)), self.record)
+
+
 def _grad_groups(grads, layer: int) -> dict:
     """The gradients the vla-full-train parity compares, as fp32 lists:
     each tower's, the projector's, and decoder layer ``layer``'s."""
@@ -3942,9 +4237,11 @@ def main(argv) -> int:
     vla = vla_train_phase(dev, kernels)
     log_phase("vla_full_train_fp32_phase")
     full = vla_full_train_fp32_phase(dev, kernels)
+    log_phase("rlds_phase")
+    rl = rlds_phase(dev, kernels)
     log("training " + json.dumps({"align7b": align, "pretrain": pre,
                                   "vla_train": vla,
-                                  "vla_full_train_fp32": full}))
+                                  "vla_full_train_fp32": full, "rlds": rl}))
     log_phase("multigpu_phase")
     multi = multigpu_phase(dev, kernels)
     log("multigpu " + json.dumps(multi))
@@ -3991,6 +4288,11 @@ def main(argv) -> int:
                                       "fp32_rel_err")}
                    for r in flash if r["dtype"] == "float32"]}
     zoo_of = zoo_entries(zoo)
+
+    def rlds_launches(name):
+        """(GCOT loop, RLDS loop) launches of the ``rlds`` phase."""
+        return [rl["gcot"]["launches"][name], rl["vla"]["launches"][name]]
+
     entries = [
         entry(by_name["flash_fwd_lse"], fa.KERNEL,
               "emmax_tpu/ops/flash_attention.py:202", step["flash_fwd"],
@@ -4016,6 +4318,7 @@ def main(argv) -> int:
                            full_step["flash_fwd"]["float32"]},
               launches_checkpoint_request_by_dtype=ckpt["hf_int4"][
                   "request"]["flash_fwd_by_dtype"],
+              launches_rlds_gcot_vla=rlds_launches("flash_fwd"),
               zoo=zoo_of["flash_fwd"]),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
@@ -4024,6 +4327,7 @@ def main(argv) -> int:
               launches_pretrain_align_step_uncached_cached=pstep[
                   "flash_bwd_dq"],
               **bwd_res["tc::dq_kernel<128>"],
+              launches_rlds_gcot_vla=rlds_launches("flash_bwd_dq"),
               zoo=zoo_of["flash_bwd_dq"]),
         entry(by_name["flash_bwd_dkv"], fa.DKV_KERNEL,
               "emmax_tpu/ops/flash_attention.py:445",
@@ -4036,6 +4340,7 @@ def main(argv) -> int:
                         ("ms", "eager_ms", "max_abs_err", "bound_ms",
                          "bound_by", "dq_partial_sum_ms")},
                      **bwd_res["tc::dkv_kernel<128, true>"]},
+              launches_rlds_gcot_vla=rlds_launches("flash_bwd_dkv"),
               zoo=zoo_of["flash_bwd_dkv"]),
         *[entry(by_name32[kname][0], kernel,
                 f"emmax_tpu/ops/flash_attention.py:{line}",

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Optional, Protocol
+from typing import Dict, List, Optional, Protocol, Sequence
 
 import numpy as np
 
@@ -49,19 +49,18 @@ class SyntheticFrameSource:
 
 
 class DirectoryFrameSource:
-    """Frames pre-extracted to ``<root>/<key>/im_<index>.jpg``."""
+    """Frames pre-extracted to ``<root>/<key>/im_<index>.jpg``, decoded by
+    the port's codec with libjpeg's ISLOW DCT: the pixels OpenCV's
+    ``imread`` gives the JAX package."""
 
     def __init__(self, root) -> None:
         self.root = Path(root)
 
     def get_frame(self, key: str, index: int) -> np.ndarray:
-        import cv2
+        from emmax_torch.data.codec import decode_image
 
         path = self.root / key / f"im_{index}.jpg"
-        img = cv2.imread(str(path), cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(path)
-        return img[..., ::-1].copy()  # BGR -> RGB
+        return decode_image(path.read_bytes(), "islow")
 
 
 def parse_image_path(current_image_path: str):
@@ -171,6 +170,21 @@ class GCOTDataset:
         prompt = self._build_prompt(prompt_str, "")
         input_ids = self.tokenizer.encode(prompt, add_special_tokens=True)[:-2]
         return {"image": image, "input_ids": input_ids, "labels": gpt_output}
+
+
+def key_items_to_frames(items: List[Dict], index: Dict[str, Sequence]
+                        ) -> List[Dict]:
+    """The records with each ``current_image_path`` pointing at a frame
+    of ``index`` (``{trajectory key: frames}``, e.g.
+    ``RLDSFrameSource.index``): record i takes trajectory i mod the count,
+    frame i mod its length."""
+    keys = sorted(index)
+    out = []
+    for i, item in enumerate(items):
+        key = keys[i % len(keys)]
+        out.append({**item, "current_image_path":
+                    f"{key}/im_{i % len(index[key])}.jpg"})
+    return out
 
 
 def make_dummy_gcot_items(n: int, rng: Optional[np.random.Generator] = None

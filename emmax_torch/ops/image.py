@@ -43,10 +43,24 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def resize_weights(in_size: int, out_size: int,
-                   device: torch.device) -> torch.Tensor:
-    """``[in_size, out_size]`` float32 bicubic weights (JAX's
-    ``compute_weight_mat`` with antialiasing and zero translation)."""
+def _lanczos3(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_fill_lanczos_kernel`` with radius 3 (TF's Lanczos3)."""
+    radius = 3.0
+    y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
+    out = torch.where(x > 1e-3, y / torch.where(x != 0, np.pi ** 2 * x * x,
+                                                torch.ones_like(x)),
+                      torch.ones_like(x))
+    return torch.where(x > radius, torch.zeros_like(x), out)
+
+
+_KERNELS = {"bicubic": _keys_cubic, "lanczos3": _lanczos3}
+
+
+def resize_weights(in_size: int, out_size: int, device: torch.device,
+                   kernel: str = "bicubic") -> torch.Tensor:
+    """``[in_size, out_size]`` float32 weights (JAX's
+    ``compute_weight_mat`` with antialiasing and zero translation) of the
+    Keys cubic (a = -0.5) or the Lanczos3 kernel."""
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = max(inv_scale, 1.0)
     f32 = torch.float32
@@ -54,7 +68,7 @@ def resize_weights(in_size: int, out_size: int,
                 * inv_scale - 0.5)
     x = (sample_f[None, :] - torch.arange(in_size, dtype=f32,
                                           device=device)[:, None]).abs()
-    weights = _keys_cubic(x / kernel_scale)
+    weights = _KERNELS[kernel](x / kernel_scale)
     total = weights.sum(dim=0, keepdim=True)
     eps = 1000.0 * float(np.finfo(np.float32).eps)
     weights = torch.where(

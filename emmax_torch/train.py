@@ -6,6 +6,9 @@ directory (``config.json`` and ``dataset_statistics.json`` sidecars,
 checkpoints named ``step-XXXXXX-epoch-XX-loss=X.XXXX``) and training
 semantics (GCOT dataset with its data mix, instruction masking, Solver
 eval every ``eval_interval`` steps, checkpoints every ``save_interval``).
+Frames come from pre-extracted JPEGs (``--frames_dir``) or from the
+BridgeV2 TFRecords themselves (``--rlds_data_dir``, read and decoded
+without TensorFlow by ``data.rlds.RLDSFrameSource``).
 It runs on the card unless ``--device cpu`` is given, and raises without
 one. Weights are random from ``--seed``, or, with
 ``--pretrained_checkpoint``, a reference Prismatic ``.pt`` converted into
@@ -22,7 +25,8 @@ global batch, and rank 0 logs and writes the run directory.
         --vla.type prism-dinosiglip-224px+mx-moveonly-moveguided-single-policy \\
         --data_root_dir data/gcot --frames_dir data/frames --run_root_dir runs
     python -m emmax_torch.train --smoke_test true --device cpu \\
-        --vla.max_steps 2 --run_root_dir /tmp/smoke
+        --vla.max_steps 2 --run_root_dir /tmp/smoke \\
+        [--rlds_data_dir data/bridge_orig]
     python -m torch.distributed.run --nproc_per_node 8 -m emmax_torch.train \\
         --vla.train_strategy fsdp-full-shard --smoke_test true \\
         --vla.global_batch_size 8 --vla.max_steps 2 --run_root_dir runs
@@ -51,7 +55,7 @@ class TrainConfig:
     data_root_dir: Path = Path("data/gcot")            # GCOT JSON dir
     file_name: str = "second_version.json"
     run_root_dir: Path = Path("runs")
-    rlds_data_dir: Optional[Path] = None               # not ported yet
+    rlds_data_dir: Optional[Path] = None               # BridgeV2 TFRecords
     frames_dir: Optional[Path] = None                  # pre-extracted frames
 
     pretrained_checkpoint: Optional[Path] = None       # reference .pt
@@ -99,7 +103,9 @@ def main(cfg: TrainConfig):
     from emmax_torch.data.collators import BatchLoader, collate_train
     from emmax_torch.data.gcot import (DirectoryFrameSource, GCOTDataset,
                                        SyntheticFrameSource,
+                                       key_items_to_frames,
                                        make_dummy_gcot_items)
+    from emmax_torch.data.rlds import RLDSFrameSource
     from emmax_torch.data.prefetch import PrefetchingLoader
     from emmax_torch.models.load import build_vlm
     from emmax_torch.models.materialize import get_image_transforms
@@ -180,17 +186,21 @@ def main(cfg: TrainConfig):
     # --- data ---
     if cfg.smoke_test:
         items = make_dummy_gcot_items(64)
-        frame_source = SyntheticFrameSource(64)
+        if cfg.rlds_data_dir is not None:
+            # the synthetic records, each keyed to a frame of the episodes
+            frame_source = RLDSFrameSource(cfg.rlds_data_dir)
+            items = key_items_to_frames(items, frame_source.index)
+        else:
+            frame_source = SyntheticFrameSource(64)
     else:
         with open(Path(cfg.data_root_dir) / cfg.file_name) as f:
             items = json.load(f)
         if cfg.frames_dir is not None:
             frame_source = DirectoryFrameSource(cfg.frames_dir)
         elif cfg.rlds_data_dir is not None:
-            raise ValueError("--rlds_data_dir: the RLDS frame source is not "
-                             "ported yet; pass --frames_dir")
+            frame_source = RLDSFrameSource(cfg.rlds_data_dir)
         else:
-            raise ValueError("need --frames_dir")
+            raise ValueError("need --frames_dir or --rlds_data_dir")
     dataset = GCOTDataset(items, action_tokenizer, tokenizer, frame_source,
                           data_mix=vla.data_mix, mask_inst=cfg.mask_inst)
     # each data rank loads its own rows; ranks that differ only on the

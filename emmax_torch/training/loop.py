@@ -9,6 +9,10 @@ the GCOT batches with
   epoch's end (with the optimizer state),
 - metrics committed per step and pushed to the trackers.
 
+``run_vla_training`` is OpenVLA's RLDS loop: no epochs, a stream of
+batches consumed for ``max_steps`` steps, with the same Solver eval and
+checkpoint cadence.
+
 ``run_training`` is the VLM pretraining stages' loop (align / finetune):
 split-modality batches with mixed text-only and multimodal rows, the
 same checkpoints and metrics, no Solver. ``run_validation`` writes the
@@ -106,6 +110,50 @@ def _place(batch, device, mesh):
                                                                      mesh)
 
 
+def _vla_step(state, batch, step: int, epoch: int, *, vlm_cfg, train_step,
+              metrics, loop_cfg: LoopConfig, device, mesh, tokenizer,
+              solver, eval_fn, ckpt_manager, lr_fn):
+    """One step of the VLA loops: the train step on the placed batch, the
+    metrics, the Solver eval every ``eval_every`` steps and the checkpoint
+    every ``save_every``. Returns (state, step, loss)."""
+    labels = batch["labels"]
+    device_batch = _place(batch, device, mesh)
+    state, m = train_step(state, device_batch)
+    step += 1
+    m = _fetch(m)
+    loss = m["loss"]
+    metrics.commit(loss=loss, action_accuracy=m.get("action_accuracy", 0.0),
+                   action_l1=m.get("action_l1", 0.0),
+                   grad_norm=m.get("grad_norm", 0.0))
+
+    lr = float(lr_fn(step)) if lr_fn is not None else 0.0
+    if step % loop_cfg.log_every == 0:
+        metrics.push(lr)
+        log.info(metrics.status(epoch, lr))
+    else:
+        metrics.global_step += 1
+
+    if (solver is not None and eval_fn is not None
+            and step % loop_cfg.eval_every == 0
+            and not isinstance(labels, (list, tuple))):
+        host_labels = (labels.cpu().numpy()
+                       if isinstance(labels, torch.Tensor)
+                       else np.asarray(labels))
+        preds = eval_fn(state.params, device_batch).cpu().numpy()
+        gts, prs = teacher_forced_texts(
+            preds, host_labels, vlm_cfg.num_patches, tokenizer)
+        _, a_acc, l1, rel_l1, _, _ = solver.evaluate_batch(gts, prs)
+        metrics.commit(solver_action_accuracy=float(np.mean(a_acc)),
+                       solver_l1=float(np.mean(l1)),
+                       solver_relative_l1=float(np.mean(rel_l1)))
+        log.info(f"[solver eval @ {step}] acc={np.mean(a_acc):.3f} "
+                 f"L1={np.mean(l1):.4f}")
+
+    if ckpt_manager is not None and step % loop_cfg.save_every == 0:
+        ckpt_manager.save(state, step=step, epoch=epoch, loss=loss)
+    return state, step, loss
+
+
 def run_discrete_vla_training(*, vlm_cfg: VLMConfig, state,
                               train_step: Callable, loader,
                               metrics: VLADiscreteMetrics,
@@ -120,45 +168,14 @@ def run_discrete_vla_training(*, vlm_cfg: VLMConfig, state,
     this rank's rows, placed with ``shard_batch``."""
     step = start_step
     final_loss = float("nan")
+    kw = dict(vlm_cfg=vlm_cfg, train_step=train_step, metrics=metrics,
+              loop_cfg=loop_cfg, device=device, mesh=mesh,
+              tokenizer=tokenizer, solver=solver, eval_fn=eval_fn,
+              ckpt_manager=ckpt_manager, lr_fn=lr_fn)
     for epoch in range(start_epoch, loop_cfg.epochs):
         for batch in loader.epoch(epoch):
-            labels = batch["labels"]
-            device_batch = _place(batch, device, mesh)
-            state, m = train_step(state, device_batch)
-            step += 1
-            m = _fetch(m)
-            final_loss = m["loss"]
-            metrics.commit(loss=final_loss,
-                           action_accuracy=m.get("action_accuracy", 0.0),
-                           action_l1=m.get("action_l1", 0.0),
-                           grad_norm=m.get("grad_norm", 0.0))
-
-            lr = float(lr_fn(step)) if lr_fn is not None else 0.0
-            if step % loop_cfg.log_every == 0:
-                metrics.push(lr)
-                log.info(metrics.status(epoch, lr))
-            else:
-                metrics.global_step += 1
-
-            if (solver is not None and eval_fn is not None
-                    and step % loop_cfg.eval_every == 0
-                    and not isinstance(labels, (list, tuple))):
-                host_labels = (labels.cpu().numpy()
-                               if isinstance(labels, torch.Tensor)
-                               else np.asarray(labels))
-                preds = eval_fn(state.params, device_batch).cpu().numpy()
-                gts, prs = teacher_forced_texts(
-                    preds, host_labels, vlm_cfg.num_patches, tokenizer)
-                _, a_acc, l1, rel_l1, _, _ = solver.evaluate_batch(gts, prs)
-                metrics.commit(solver_action_accuracy=float(np.mean(a_acc)),
-                               solver_l1=float(np.mean(l1)),
-                               solver_relative_l1=float(np.mean(rel_l1)))
-                log.info(f"[solver eval @ {step}] acc={np.mean(a_acc):.3f} "
-                         f"L1={np.mean(l1):.4f}")
-
-            if ckpt_manager is not None and step % loop_cfg.save_every == 0:
-                ckpt_manager.save(state, step=step, epoch=epoch,
-                                  loss=final_loss)
+            state, step, final_loss = _vla_step(state, batch, step, epoch,
+                                                **kw)
             if loop_cfg.max_steps is not None and step >= loop_cfg.max_steps:
                 if ckpt_manager is not None:
                     ckpt_manager.save(state, step=step, epoch=epoch,
@@ -166,6 +183,34 @@ def run_discrete_vla_training(*, vlm_cfg: VLMConfig, state,
                 return state
         if ckpt_manager is not None:
             ckpt_manager.save(state, step=step, epoch=epoch, loss=final_loss)
+    return state
+
+
+def run_vla_training(*, vlm_cfg: VLMConfig, state, train_step: Callable,
+                     batch_iter, metrics, max_steps: int,
+                     loop_cfg: Optional[LoopConfig] = None, device="cpu",
+                     mesh=None, tokenizer=None, solver=None,
+                     eval_fn: Optional[Callable] = None, ckpt_manager=None,
+                     lr_fn: Optional[Callable[[int], float]] = None,
+                     start_step: int = 0):
+    """The RLDS stream loop: ``batch_iter`` yields collated batches
+    (numpy, or tensors on ``device``, e.g. ``PrefetchingLoader(
+    StreamingBatcher(...), device).epoch(0)``) forever; the loop steps
+    until ``max_steps`` and saves a last checkpoint. Returns the final
+    state."""
+    loop_cfg = loop_cfg or LoopConfig()
+    step = start_step
+    final_loss = float("nan")
+    for batch in batch_iter:
+        state, step, final_loss = _vla_step(
+            state, batch, step, 0, vlm_cfg=vlm_cfg, train_step=train_step,
+            metrics=metrics, loop_cfg=loop_cfg, device=device, mesh=mesh,
+            tokenizer=tokenizer, solver=solver, eval_fn=eval_fn,
+            ckpt_manager=ckpt_manager, lr_fn=lr_fn)
+        if step >= max_steps:
+            break
+    if ckpt_manager is not None:
+        ckpt_manager.save(state, step=step, epoch=0, loss=final_loss)
     return state
 
 

@@ -59,7 +59,13 @@ def test_import_loads_no_jax():
             "emmax_torch.util.batching",
             "emmax_torch.conf.datasets", "emmax_torch.models.phi",
             "emmax_torch.models.materialize", "emmax_torch.models.vit",
-            "emmax_torch.models.vlm", "emmax_torch.ops.rope"} <= set(MODULES)
+            "emmax_torch.models.vlm", "emmax_torch.ops.rope",
+            "emmax_torch.data.codec", "emmax_torch.data.tfrecord",
+            "emmax_torch.data.normalization", "emmax_torch.data.relabeling",
+            "emmax_torch.data.augment", "emmax_torch.data.rlds",
+            "emmax_torch.data.oxe", "emmax_torch.data.rlds_vla",
+            "emmax_torch.data.framestore",
+            "emmax_torch.vla.materialize"} <= set(MODULES)
 
 
 def test_pretrain_modules_import_no_opencv():
