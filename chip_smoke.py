@@ -122,7 +122,9 @@ Phases, each raising on failure (the script then exits non-zero):
    K/V gathered to a dense layout outside the timed region;
 9. batched serving, tiny config: ``PagedServingEngine(paged_attn=
    "kernel")`` on the card gives the CPU engine's greedy tokens (fp32,
-   int8 pages off and on), and the card's kernel decode step agrees with
+   int8 pages off and on), and so do the plain modes "gather2",
+   "pagescan" and "poolmask" (every token; the third request runs beside
+   an empty slot), and the card's kernel decode step agrees with
    the gather step (logits rel-RMSE < 2e-2 after two bursts, mixed
    prompt lengths; fp32 and bf16, int8 pages off and on);
 10. batched serving at full width with int4 weights, at the settings of
@@ -134,6 +136,13 @@ Phases, each raising on failure (the script then exits non-zero):
    (6 slots, cache 1024, burst 32); per run aggregate tokens/s after a
    warm-up run, admission ms, median burst ms, peak memory, each
    kernel's launches, and the device's busy share of one profiled burst;
+   then the plain modes "gather2", "pagescan" and "poolmask" on int8
+   pages (``paged_modes_full``): each one's first decode step on one
+   admitted pool against "gather"'s (logits within ``EVAL_PAGED_RMSE``:
+   1e-6 for gather2, 5e-2 for the others; the kernel's distance printed
+   beside), and one batch of the six requests of ``EVAL_PAGED_NEW``
+   tokens in one burst each (aggregate tokens/s, admission and burst ms,
+   launches);
 11. ``vla-train``: full width with the decoder cut to ``VLA_LAYERS`` (4)
    of 32 layers (a cut of memory: fp32 master, gradients and AdamW moments
    of a 32-layer decoder do not fit one card; 8 layers until the pretrain
@@ -190,6 +199,31 @@ Phases, each raising on failure (the script then exits non-zero):
    each step's wait for data. No checkpoint is written. 25-35 s on
    the H100.
 
+12c. ``eval``: robot evaluation (``eval_phase``): (a) the tiny model
+   (fp32, vocab 1024; weights drawn once on the host) through
+   ``evaluate_policy(VLAEnvPolicy)`` on the card and on the CPU, one task,
+   ``EVAL_TINY_STEPS`` steps: the same texts, actions, frames and report;
+   (b) ``load_vla("prism-dinosiglip-224px+7b")`` in bf16 (phase 5's
+   seed) through ``evaluate_policy(VLAEnvPolicy)`` on the four tasks of
+   the kinematic world, one episode of ``EVAL_TASK_STEPS`` steps each at
+   its 128 px frames, ``EVAL_NEW`` new tokens a decode, then
+   ``run_closed_loop`` on ``DummyEnv``'s 256 px frames for
+   ``EVAL_LOOP_STEPS`` actions with the ``GripperLocator`` and no
+   detector: every decode launches the fp32 flash forward depth - 1 times
+   a tower and the bf16 one once a decoder layer (read just before and
+   just after it), and each env takes exactly the steps asked for;
+   printed: per-decode ms (median, maximum; host clock, synced), one
+   decode's encode / prefill / decode ms (the engine's CUDA events), host
+   ms per env step outside the decode, actions per second, the device
+   peak; then one int4 episode (``quantize="int4"``, the first task, the
+   same steps and tokens; the int4 kernel on 7 weights a layer and the
+   lm_head in every forward of every decode); (c) ``python -m
+   emmax_torch.eval_success_rate``'s ``scripted``
+   mode (1.0 on every task) and ``fixture`` -> ``gt_replay`` (1.0), host
+   only, through the port's JPEG codec and TFRecord reader and writer.
+   Random weights score 0 by construction: the success rate is not a
+   result. One ``eval {...}`` line.
+
 13. ``multigpu``: the multi-GPU path (``emmax_torch.parallel``) at world
    size 1: a NCCL process group of one rank joined in-process
    (``initialize_distributed``, 127.0.0.1 and a free port) and the (1, 1,
@@ -229,7 +263,7 @@ Phases, each raising on failure (the script then exits non-zero):
    prefill and training shapes at D 80, int4 at Phi's and Mistral's
    weights). One JSON line.
 
-Phases 4b, 5b, 10b, 7, 7b, 11, 12, 13 and 14 run after phase 10 (4b with
+Phases 4b, 5b, 10b, 7, 7b, 11, 12, 12b, 12c, 13 and 14 run after phase 10 (4b with
 phase 4, 5b with phase 5); ``--kernels-only`` skips them. The line
 before the last is the card's name and power limit; the one before it a
 JSON object with one entry per kernel; the last line is
@@ -330,6 +364,27 @@ ZOO_TOWERS = ("clip-vit-l", "clip-vit-l-336px", "siglip-vit-so400m-384px",
 ZOO_PHI, ZOO_13B, ZOO_MISTRAL = "phi-2+3b", "llama2+13b", "mistral-v0.1+7b"
 ZOO_NEW = 32
 ZOO_TOWER_RTOL = 1e-4
+# eval: (a) the tiny model card vs CPU through evaluate_policy: one task,
+# EVAL_TINY_STEPS steps, EVAL_TINY_NEW new tokens a decode; (b) full-width
+# Emma-X (bf16) on every task of the kinematic world, 1 episode of
+# EVAL_TASK_STEPS steps each at the evaluator's 128 px frames, EVAL_NEW new
+# tokens a decode, then run_closed_loop for EVAL_LOOP_STEPS actions on
+# 256 px frames. (d) the paged engine's plain modes: on the int4 model,
+# six requests of EVAL_PAGED_NEW new tokens on int8 pages in one burst;
+# the first decode step's logits held to "gather"'s (relative RMSE) within
+# EVAL_PAGED_RMSE[mode]. gather2 computes gather's bf16 values in the same
+# order (0.0 apart in two card runs), so it is held to 1e-6. pagescan
+# (fp32 online softmax over fp32-dequantized pages) and poolmask (int8
+# scales folded into the fp32 scores and probabilities) round in other
+# places than gather's bf16-dequantized rows, and 32 random layers amplify
+# that: both read 2.6-2.7% in two card runs, as did the paged kernel
+# beside them, so 5e-2 leaves less than twice that. Their exact check is
+# the tiny config's, card against CPU, every token
+EVAL_TINY_STEPS, EVAL_TINY_NEW = 4, 16
+EVAL_TASK_STEPS, EVAL_NEW, EVAL_LOOP_STEPS = 3, 32, 2
+EVAL_PAGED_MODES = ("gather2", "pagescan", "poolmask")
+EVAL_PAGED_NEW = 16
+EVAL_PAGED_RMSE = {"gather2": 1e-6, "pagescan": 5e-2, "poolmask": 5e-2}
 
 
 T0 = time.perf_counter()
@@ -1703,25 +1758,31 @@ def tiny_batched_parity(dev):
         n: torch.from_numpy(rng.normal(size=(1, v.img_size, v.img_size, 3))
                             .astype(np.float32)) for n, v in cfg.vision})
         for _ in prompts]
-    for quantized in (False, True):
-        outs = []
-        for device, p in (("cpu", params), (dev, on_card)):
-            eng = PagedServingEngine(
-                cfg, p, tok, num_slots=2, n_pages=24, page_size=16,
-                max_pages_per_slot=8, burst=4, paged_attn="kernel",
-                quantized_cache=quantized, device=device)
-            rids = [eng.submit(pr, {"patches": pt.to(device)},
-                               max_new_tokens=12)
-                    for pr, pt in zip(prompts, patches)]
-            done = eng.run_until_complete()
-            outs.append([done[r] for r in rids])
-        if outs[0] != outs[1]:
-            raise AssertionError(f"tiny paged kernel, int8 pages "
-                                 f"{quantized}: card {outs[1]} != CPU "
-                                 f"{outs[0]}")
-        log(f"tiny paged kernel parity (int8 pages {quantized}): card == "
-            f"CPU, {sum(len(o) for o in outs[1])} tokens over 3 requests")
-    steps = {}
+    modes = {}
+    for mode in ("kernel",) + EVAL_PAGED_MODES:
+        # every token of every mode: fp32 operands on both sides, and the
+        # third request runs alone, beside an empty slot
+        for quantized in (False, True):
+            outs = []
+            for device, p in (("cpu", params), (dev, on_card)):
+                eng = PagedServingEngine(
+                    cfg, p, tok, num_slots=2, n_pages=24, page_size=16,
+                    max_pages_per_slot=8, burst=4, paged_attn=mode,
+                    quantized_cache=quantized, device=device)
+                rids = [eng.submit(pr, {"patches": pt.to(device)},
+                                   max_new_tokens=12)
+                        for pr, pt in zip(prompts, patches)]
+                done = eng.run_until_complete()
+                outs.append([done[r] for r in rids])
+            if outs[0] != outs[1]:
+                raise AssertionError(f"tiny paged {mode}, int8 pages "
+                                     f"{quantized}: card {outs[1]} != CPU "
+                                     f"{outs[0]}")
+            key = f"{mode} int8 pages {quantized}"
+            modes[key] = sum(len(o) for o in outs[1])
+            log(f"tiny paged {key}: card == CPU, {modes[key]} tokens over "
+                f"3 requests")
+    steps = {"card_eq_cpu_tokens": modes}
     for dtype in (torch.float32, torch.bfloat16):
         _, p, _, _, _ = load("tiny", dtype=dtype, device=dev, seed=3)
         for quantized in (False, True):
@@ -1875,6 +1936,8 @@ def batched_phase(dev, kernels):
         shared[how] = rec
         log(f"shared-prefix {how} " + json.dumps(rec))
     runs["shared_prefix"] = shared
+    runs["new_paged_modes"] = paged_modes_full(cfg, params, tok, pixels,
+                                               prompt, kernels)
     for name, rec in [*runs.items()][:4] + [
             (f"shared {h}", r) for h, r in shared.items()]:
         for kname in ("flash_fwd", "int4_matmul"):
@@ -3412,6 +3475,321 @@ def vla_full_train_fp32_phase(dev, kernels):
     return out
 
 
+# -------------------------------------------------------------------- eval --
+
+class _Metered:
+    """A VLA whose ``generate_actions`` calls are timed on the host clock
+    (a sync on each side) and whose flash-forward launches by dtype and
+    int4 launches are read just before and just after each call; keeps
+    each decode's text, actions and the engine's CUDA-event timings."""
+
+    def __init__(self, vla, fa_kernel, int4_kernel):
+        self.vla, self.fa, self.i4 = vla, fa_kernel, int4_kernel
+        self.rows = []
+
+    def get_prompt(self, *args):
+        return self.vla.get_prompt(*args)
+
+    def generate_actions(self, image, prompt, **kw):
+        before, before_i4 = dict(self.fa.launches_by), self.i4.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actions, text = self.vla.generate_actions(image, prompt, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = dict(self.fa.launches_by)
+        self.rows.append({
+            "ms": ms, "n_actions": len(actions), "text": text,
+            "actions": [np.asarray(x).tolist() for x in actions],
+            "launches": {k: after.get(k, 0) - before.get(k, 0)
+                         for k in ("float32", "bfloat16")},
+            "int4_launches": self.i4.launches - before_i4,
+            "timings": dict(self.vla.engine.last_timings)})
+        return actions, text
+
+
+def eval_tiny_parity(dev) -> dict:
+    """(a) The tiny Emma-X (fp32, vocab 1024), weights drawn once on the
+    host and moved, through ``evaluate_policy(VLAEnvPolicy)`` on the card
+    (the kernels) and on the CPU (the plain versions): the same texts,
+    actions, frames and report."""
+    from emmax_torch.eval_success_rate import VLAEnvPolicy, build_tiny_vla
+    from emmax_torch.experiments.kinematic_sim import TASKS, evaluate_policy
+    from emmax_torch.models.vlm import init_vlm_params, tiny_vlm_config
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops import int4_matmul as i4
+
+    generator = torch.Generator("cpu")
+    generator.manual_seed(0)
+    params = init_vlm_params(generator, tiny_vlm_config(vocab_size=1024))
+    task = next(iter(TASKS))
+    runs = []
+    for device, p in (("cpu", params), (dev, _tree_to(params, dev))):
+        meter = _Metered(build_tiny_vla(device, params=p), fa.KERNEL,
+                         i4.KERNEL)
+        frames = []
+        report = evaluate_policy(
+            VLAEnvPolicy(meter, max_new_tokens=EVAL_TINY_NEW), tasks=[task],
+            episodes_per_task=1, max_steps=EVAL_TINY_STEPS,
+            on_frame=lambda n, ep, img, frames=frames: frames.append(
+                img.tobytes()))
+        runs.append((report, [(r["text"], r["actions"]) for r in meter.rows],
+                     frames))
+    if runs[0] != runs[1]:
+        raise AssertionError(f"eval tiny: card {runs[1][:2]} != CPU "
+                             f"{runs[0][:2]}")
+    out = {"task": task, "steps": len(runs[1][2]),
+           "decodes": len(runs[1][1]),
+           "tokens_equal": True, "frames_equal": True}
+    log("eval tiny card == CPU " + json.dumps(out))
+    return out
+
+
+def paged_modes_full(cfg, params, tok, pixels, prompt, kernels):
+    """(d) The paged engine's ``gather2`` / ``pagescan`` / ``poolmask`` at
+    full width on the int4 model, int8 pages: each mode's first decode
+    step on one admitted pool against ``gather``'s (logits rel-RMSE within
+    the mode's ``EVAL_PAGED_RMSE``; the kernel's distance printed beside
+    it), then one batch of the six requests, ``EVAL_PAGED_NEW`` new tokens
+    each, in one burst: aggregate tok/s, admission and burst ms, launches."""
+    from emmax_torch.serving.paged import (PagedServingEngine,
+                                           _paged_decode_step)
+
+    kw = {**PAGED_KW, "burst": EVAL_PAGED_NEW}
+    # admission is the same in every mode; poolmask's engine also hands
+    # out its page ownership (``_ownership``)
+    eng = PagedServingEngine(cfg, params, tok, paged_attn="poolmask",
+                             quantized_cache=True, device="cuda", **kw)
+    for px in pixels:
+        eng.submit(prompt, px, max_new_tokens=EVAL_PAGED_NEW)
+    eng._admit()
+    eng._ensure_pages()
+    steps = {}
+    for mode in ("gather", "kernel") + EVAL_PAGED_MODES:
+        _, nxt, logits = _paged_decode_step(
+            params["llm"], cfg.llm, eng.pool, page_size=kw["page_size"],
+            n_pages=kw["n_pages"], paged_attn=mode, **eng._ownership())
+        steps[mode] = (nxt, logits)
+    first = {}
+    for mode in ("kernel",) + EVAL_PAGED_MODES:
+        rmse = _rel_rmse(steps[mode][1], steps["gather"][1])
+        agree = int((steps[mode][0] == steps["gather"][0]).sum())
+        first[mode] = {"logit_rel_rmse": rmse, "argmax_agree": agree}
+        if mode != "kernel" and not rmse <= EVAL_PAGED_RMSE[mode]:
+            raise AssertionError(f"{mode} first decode step: logits "
+                                 f"rel-RMSE {rmse:.3g} from gather's "
+                                 f"(limit {EVAL_PAGED_RMSE[mode]})")
+    del eng
+    runs = {}
+    for mode in EVAL_PAGED_MODES:
+        for k in kernels:
+            k.reset_counts()
+        make = (lambda mode=mode, **o: PagedServingEngine(
+            cfg, params, tok, paged_attn=mode, quantized_cache=True,
+            device="cuda", **{**kw, **o}))
+        _, out, rec = serve(make, lambda e: [
+            e.submit(prompt, px, max_new_tokens=EVAL_PAGED_NEW)
+            for px in pixels])
+        rec["launches"] = {k.name: k.launches for k in kernels}
+        for o in out:
+            if len(o) == 0 or any(not (0 <= t < cfg.llm.vocab_size)
+                                  for t in o):
+                raise AssertionError(f"paged {mode}: bad tokens {o[:8]}")
+        for kname in ("flash_fwd", "int4_matmul"):
+            if rec["launches"][kname] == 0:
+                raise AssertionError(f"paged {mode}: launched no {kname}")
+        runs[mode] = rec
+    out = {"first_step_vs_gather": first, "runs": runs,
+           "requests": len(pixels), "new_tokens": EVAL_PAGED_NEW,
+           "rmse_limit": EVAL_PAGED_RMSE}
+    log("paged new modes " + json.dumps(out))
+    return out
+
+
+def eval_phase(dev, kernels) -> dict:
+    """Robot evaluation on the card: (a) ``eval_tiny_parity``; (b)
+    full-width Emma-X (bf16, phase 5's seed) through
+    ``evaluate_policy(VLAEnvPolicy)`` on every task of the kinematic world,
+    then one ``run_closed_loop`` episode on ``DummyEnv``'s 256x256 frames
+    with the ``GripperLocator``; (c) ``eval_success_rate``'s scripted mode
+    and its fixture -> gt_replay round trip, host only. Between (b) and
+    (c), one int4 episode: the first task's loop on int4 weights. (d)
+    lives in ``tiny_batched_parity`` and ``batched_phase``."""
+    import contextlib
+    import io
+    import tempfile
+
+    import emmax_torch
+    from emmax_torch.bridge_eval import DummyEnv
+    from emmax_torch.eval_success_rate import VLAEnvPolicy
+    from emmax_torch.eval_success_rate import main as esr_main
+    from emmax_torch.experiments.gripper import GripperLocator
+    from emmax_torch.experiments.kinematic_sim import TASKS, evaluate_policy
+    from emmax_torch.experiments.policy import run_closed_loop
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops import int4_matmul as i4
+
+    t_phase = time.perf_counter()
+    out = {"phase": "eval", "tiny": eval_tiny_parity(dev)}
+    tiny_s = time.perf_counter() - t_phase
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    vla = emmax_torch.load_vla(MODEL_ID, device="cuda", seed=0)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    blocks = sum(v.depth - 1 for _, v in vla.cfg.vision)
+    layers = vla.cfg.llm.n_layers
+    want = {"float32": blocks, "bfloat16": layers}
+    for k in kernels:
+        k.reset_counts()
+    meter = _Metered(vla, fa.KERNEL, i4.KERNEL)
+    stepped = []
+    t0 = time.perf_counter()
+    report = evaluate_policy(
+        VLAEnvPolicy(meter, max_new_tokens=EVAL_NEW), tasks=list(TASKS),
+        episodes_per_task=1, max_steps=EVAL_TASK_STEPS,
+        on_frame=lambda n, ep, img: stepped.append(n))
+    torch.cuda.synchronize(dev)
+    sim_s = time.perf_counter() - t0
+    sim_launches = {k.name: k.launches for k in kernels}
+    if len(stepped) != len(TASKS) * EVAL_TASK_STEPS:
+        raise AssertionError(f"evaluate_policy took {len(stepped)} env "
+                             f"steps, not {len(TASKS) * EVAL_TASK_STEPS}")
+    # (c) host work outside the decode: the env's step and render, the
+    # prompt, the policy's bookkeeping; the Solver's parse of one text
+    t0 = time.perf_counter()
+    vla.solver.extract_action_policies(meter.rows[0]["text"])
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    decode_ms = [r["ms"] for r in meter.rows]
+    host_ms_per_step = (sim_s * 1e3 - sum(decode_ms)) / len(stepped)
+
+    env = DummyEnv(seed=0)
+    loop_meter = _Metered(vla, fa.KERNEL, i4.KERNEL)
+    t0 = time.perf_counter()
+    log_ep = run_closed_loop(loop_meter, env, TASK,
+                             gripper_locator=GripperLocator(),
+                             max_steps=EVAL_LOOP_STEPS,
+                             max_new_tokens=EVAL_NEW)
+    torch.cuda.synchronize(dev)
+    loop_s = time.perf_counter() - t0
+    if len(env.executed) != EVAL_LOOP_STEPS or len(log_ep.actions) != \
+            EVAL_LOOP_STEPS:
+        raise AssertionError(f"run_closed_loop executed "
+                             f"{len(env.executed)} actions, not "
+                             f"{EVAL_LOOP_STEPS}")
+    for r in meter.rows + loop_meter.rows:
+        if r["launches"] != want or r["int4_launches"] != 0:
+            raise AssertionError(f"eval decode launched {r['launches']} "
+                                 f"flash_fwd by dtype, not {want}, and "
+                                 f"{r['int4_launches']} int4")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    one = meter.rows[-1]["timings"]
+    loop_ms = [r["ms"] for r in loop_meter.rows]
+    out["full"] = {
+        "model": MODEL_ID, "dtype": "bfloat16", "load_s": load_s,
+        "tasks": len(TASKS), "steps_per_task": EVAL_TASK_STEPS,
+        "new_tokens": EVAL_NEW, "frame_px": 128, "report": report,
+        "env_steps": len(stepped), "decodes": len(meter.rows),
+        "actions_per_decode": [r["n_actions"] for r in meter.rows],
+        "decode_ms_median": float(np.median(decode_ms)),
+        "decode_ms_max": float(np.max(decode_ms)),
+        "one_decode_events_ms": {k: one.get(k) for k in (
+            "encode_ms", "prefill_ms", "decode_ms", "decode_forwards")},
+        "host_ms_per_step": host_ms_per_step, "parse_ms": parse_ms,
+        "actions_per_s": len(stepped) / sim_s, "sim_s": sim_s,
+        "launches_per_decode_by_dtype": want,
+        "launches": sim_launches,
+        "closed_loop": {"frame_px": 256, "steps": EVAL_LOOP_STEPS,
+                        "decodes": len(loop_meter.rows),
+                        "decode_ms": loop_ms, "wall_s": loop_s,
+                        "actions_per_s_amortized":
+                            len(log_ep.actions) / loop_s},
+        "peak_gb": peak_gb}
+    decodes = len(meter.rows) + len(loop_meter.rows)
+    del vla, meter, loop_meter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int4 episode: one task of the same loop on int4 weights (the
+    # int4 kernel on 7 weights a layer and the lm_head, every forward)
+    t0 = time.perf_counter()
+    vla = emmax_torch.load_vla(MODEL_ID, quantize="int4", device="cuda",
+                               seed=0)
+    torch.cuda.synchronize(dev)
+    load4_s = time.perf_counter() - t0
+    meter = _Metered(vla, fa.KERNEL, i4.KERNEL)
+    t0 = time.perf_counter()
+    report4 = evaluate_policy(
+        VLAEnvPolicy(meter, max_new_tokens=EVAL_NEW),
+        tasks=[next(iter(TASKS))], episodes_per_task=1,
+        max_steps=EVAL_TASK_STEPS)
+    torch.cuda.synchronize(dev)
+    sim4_s = time.perf_counter() - t0
+    for r in meter.rows:
+        forwards = 1 + r["timings"]["decode_forwards"]
+        int4 = (7 * layers + 1) * forwards
+        if r["launches"] != want or r["int4_launches"] != int4:
+            raise AssertionError(f"int4 eval decode launched "
+                                 f"{r['launches']} flash_fwd, "
+                                 f"{r['int4_launches']} int4 (want {want}, "
+                                 f"{int4} in {forwards} forwards)")
+    ms4 = [r["ms"] for r in meter.rows]
+    out["int4"] = {
+        "load_s": load4_s, "report": report4, "decodes": len(meter.rows),
+        "decode_ms_median": float(np.median(ms4)),
+        "decode_ms_max": float(np.max(ms4)),
+        "one_decode_events_ms": {k: meter.rows[-1]["timings"].get(k) for k
+                                 in ("encode_ms", "prefill_ms", "decode_ms",
+                                     "decode_forwards")},
+        "int4_launches_per_decode": [r["int4_launches"] for r in meter.rows],
+        "actions_per_s": EVAL_TASK_STEPS / sim4_s, "sim_s": sim4_s,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    out["launches_eval"] = {
+        "per_decode_by_dtype": want,
+        "phase": {"float32": fa.KERNEL.launches_by.get("float32", 0),
+                  "bfloat16": fa.KERNEL.launches_by.get("bfloat16", 0)},
+        "decodes": decodes + len(meter.rows)}
+    out["int4_launches_eval"] = {
+        "per_decode": out["int4"]["int4_launches_per_decode"],
+        "phase": i4.KERNEL.launches, "decodes": len(meter.rows)}
+    del vla, meter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    host = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (
+                ("scripted", ["--mode", "scripted", "--episodes_per_task",
+                              "1"]),
+                ("fixture", ["--mode", "fixture", "--data", tmp,
+                             "--episodes_per_task", "1"]),
+                ("gt_replay", ["--mode", "gt_replay", "--data", tmp])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = esr_main(argv)
+            if json.loads(buf.getvalue().strip().splitlines()[-1]) != res:
+                raise AssertionError(f"eval_success_rate {name}: its JSON "
+                                     "line differs from its result")
+            host[name] = res
+    rates = [host["scripted"]["overall_success_rate"],
+             *host["scripted"]["per_task"].values(),
+             host["fixture"]["expert_success_rate"],
+             host["gt_replay"]["overall_success_rate"]]
+    if rates != [1.0] * len(rates) or host["gt_replay"]["episodes"] != \
+            len(TASKS):
+        raise AssertionError(f"eval_success_rate host modes: {host}")
+    out["host"] = {"scripted": host["scripted"]["per_task"],
+                   "fixture_episodes": host["fixture"]["episodes"],
+                   "gt_replay": host["gt_replay"]["overall_success_rate"],
+                   "host_s": time.perf_counter() - t0}
+    out["tiny_s"] = tiny_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("eval " + json.dumps(out))
+    return out
+
+
 def _mesh_gate(what: str, got: float, want: float) -> float:
     """The relative distance of a wrapped value from the unwrapped one,
     held at MESH_RTOL (the same kernels on the same tensors: 0 expected)."""
@@ -4239,9 +4617,13 @@ def main(argv) -> int:
     full = vla_full_train_fp32_phase(dev, kernels)
     log_phase("rlds_phase")
     rl = rlds_phase(dev, kernels)
+    log_phase("eval_phase")
+    ev = eval_phase(dev, serving_kernels)
     log("training " + json.dumps({"align7b": align, "pretrain": pre,
                                   "vla_train": vla,
                                   "vla_full_train_fp32": full, "rlds": rl}))
+    log("eval summary " + json.dumps({k: ev[k] for k in (
+        "tiny_s", "phase_s", "launches_eval")}))
     log_phase("multigpu_phase")
     multi = multigpu_phase(dev, kernels)
     log("multigpu " + json.dumps(multi))
@@ -4319,6 +4701,7 @@ def main(argv) -> int:
               launches_checkpoint_request_by_dtype=ckpt["hf_int4"][
                   "request"]["flash_fwd_by_dtype"],
               launches_rlds_gcot_vla=rlds_launches("flash_fwd"),
+              launches_eval=ev["launches_eval"],
               zoo=zoo_of["flash_fwd"]),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
@@ -4367,6 +4750,7 @@ def main(argv) -> int:
               launches_closed_loop_episode=episode["launches"]["int4_matmul"],
               launches_checkpoint_int4_request=ckpt["hf_int4"]["request"][
                   "launches"]["int4_matmul"],
+              launches_eval=ev["int4_launches_eval"],
               resources=int4_res,
               shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms",
                                          "library_ms", "bound_ms",

@@ -248,3 +248,10 @@ class ContinuousServingEngine:
 
     def decode_text(self, tokens: List[int]) -> str:
         return self.tokenizer.decode(tokens).strip()
+
+
+def _release_slot(pool: Dict, slot: int) -> Dict:
+    """Mark ``slot`` inactive, in place (its cache rows stay as they are;
+    the next admission overwrites them). Returns the pool."""
+    pool["active"][slot] = False
+    return pool

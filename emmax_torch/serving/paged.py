@@ -24,10 +24,20 @@ Decode modes (``paged_attn``):
 - ``"kernel"``: each step's attention reads the pages in place through the
   hand-written paged-attention kernel (``ops/paged_attention.py``, CUDA
   ``csrc/paged_attention.cu``; its plain version for CPU tensors);
-- ``"gather"``: each step gathers the pages and runs the plain attention.
+- ``"gather"``: each step gathers the pages and runs the plain attention;
+- ``"gather2"``: the same gather, the products taken on the head-major
+  ``[KV, B, S, hd]`` view (no transposed copy);
+- ``"pagescan"``: a walk over the page-table width with an online softmax,
+  one page per slot at a time, so no whole gathered view exists;
+- ``"poolmask"``: every row attends to the whole layer pool under a mask of
+  the pages its slot owns (``page_owner`` / ``page_pos``, built on the host
+  from the running requests and passed to each burst); int8 scales fold
+  into the fp32 scores and probabilities. It cannot express shared pages,
+  so ``submit_shared`` refuses it, as in JAX. A row that owns no page (an
+  empty slot) attends to nothing and gives zeros, where JAX's gives NaN
+  that then reaches every row through the trash page.
 
-The JAX package's ``"gather2"``, ``"pagescan"`` and ``"poolmask"`` modes are
-not ported; asking for one raises.
+Any other name raises.
 
 The pool is updated in place. Where JAX drops an out-of-bounds scatter
 (an admission with no slot, ``submit_shared``'s prefix prefill) the port
@@ -56,8 +66,8 @@ from emmax_torch.ops.rope import apply_rope, rope_cos_sin
 from emmax_torch.serving.engine import resolve_device, resolve_patches
 
 _MAX_INT8 = 127.5   # the paged-attention kernel's quantization convention
-PAGED_ATTN_MODES = ("burstdense", "kernel", "gather")
-NOT_PORTED_MODES = ("gather2", "pagescan", "poolmask")
+PAGED_ATTN_MODES = ("burstdense", "kernel", "gather", "gather2", "pagescan",
+                    "poolmask")
 
 
 def _row_quantize(x: torch.Tensor):
@@ -99,6 +109,107 @@ def _q_grouped(q: torch.Tensor, kv: int) -> torch.Tensor:
     """[B, 1, H, hd] -> [B, KV, G, hd] (head k*G+g reads KV head k)."""
     B, _, H, hd = q.shape
     return q[:, 0].reshape(B, kv, H // kv, hd)
+
+
+def _gather2_attention(q, k_pages, v_pages, k_scale, v_scale, table_l,
+                       lengths, *, page_size: int):
+    """Decode attention over the gathered pages in head-major layout: the
+    products read the ``[KV, B, S, hd]`` view as gathered, so no
+    ``[B, S, KV, hd]`` transpose is materialized. fp32 scores; the
+    probabilities meet V in q's dtype, as in JAX."""
+    B, MP = table_l.shape
+    kv, _, _, hd = k_pages.shape
+    S = MP * page_size
+    q2 = _q_grouped(q, kv)                                 # [B, KV, G, hd]
+    flat = table_l.reshape(-1).long()
+    k_c, v_c = k_pages[:, flat], v_pages[:, flat]
+    if k_scale is not None:
+        k_c = _row_dequantize(k_c, k_scale[:, flat], q.dtype)
+        v_c = _row_dequantize(v_c, v_scale[:, flat], q.dtype)
+    k_c = k_c.reshape(kv, B, S, hd)
+    v_c = v_c.reshape(kv, B, S, hd).to(q.dtype)
+    s = torch.einsum("bkgd,kbsd->bkgs", q2.float(),
+                     k_c.float()) * (hd ** -0.5)
+    valid = torch.arange(S, device=q.device)[None] < lengths[:, None]
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,kbsd->bkgd", w.to(q.dtype), v_c)
+    return out.reshape(B, 1, -1, hd)                       # [B, 1, H, hd]
+
+
+def _pagescan_attention(q, k_pages, v_pages, k_scale, v_scale, table_l,
+                        lengths, *, page_size: int):
+    """Page walk with an online softmax in fp32: each iteration gathers
+    one page per slot (``[KV, B, ps, hd]``), so the whole gathered view of
+    ``gather`` / ``gather2`` never exists and each page is read once."""
+    B, MP = table_l.shape
+    kv, _, _, hd = k_pages.shape
+    q2 = _q_grouped(q, kv).float()                         # [B, KV, G, hd]
+    G = q2.shape[2]
+    scale = hd ** -0.5
+    pos = torch.arange(page_size, device=q.device)
+    m = torch.full((B, kv, G, 1), float("-inf"), device=q.device)
+    den = torch.zeros((B, kv, G, 1), device=q.device)
+    num = torch.zeros((B, kv, G, hd), device=q.device)
+    for j in range(MP):
+        ids = table_l[:, j].long()                         # [B]
+        kj, vj = k_pages[:, ids], v_pages[:, ids]          # [KV, B, ps, hd]
+        if k_scale is not None:
+            kj = _row_dequantize(kj, k_scale[:, ids], torch.float32)
+            vj = _row_dequantize(vj, v_scale[:, ids], torch.float32)
+        s = torch.einsum("bkgd,kbpd->bkgp", q2, kj.float()) * scale
+        valid = (j * page_size + pos)[None] < lengths[:, None]    # [B, ps]
+        s = s.masked_fill(~valid[:, None, None], float("-inf"))
+        mj = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        c = torch.exp(m - mj)
+        sj = torch.exp(s - mj)                             # [B, KV, G, ps]
+        den = den * c + sj.sum(dim=-1, keepdim=True)
+        num = num * c + torch.einsum("bkgp,kbpd->bkgd", sj, vj.float())
+        m = mj
+    out = num / torch.clamp(den, min=1e-30)
+    return out.reshape(B, 1, -1, hd).to(q.dtype)
+
+
+def _poolmask_attention(q, k_pages, v_pages, k_scale, v_scale, layer: int,
+                        stride: int, page_owner, page_pos, lengths, *,
+                        page_size: int):
+    """Decode attention over the whole layer pool with an ownership mask,
+    no gather: token ``(p, o)`` is visible to row ``b`` iff
+    ``page_owner[p] == b`` and ``page_pos[p] * ps + o < len[b]``. int8
+    pages enter the products as they are (exact in bf16), their per-row
+    scales fold into the fp32 scores and probabilities. Product operands:
+    the compute dtype on the card (JAX: bf16 on the TPU), fp32 on the CPU,
+    as JAX's CPU path."""
+    B = lengths.shape[0]
+    kv, _, _, hd = k_pages.shape
+    S = stride * page_size
+    opd = q.dtype if q.device.type == "cuda" else torch.float32
+    q2 = _q_grouped(q, kv).to(opd)                         # [B, KV, G, hd]
+    sl = slice(layer * stride, (layer + 1) * stride)
+    k_l = k_pages[:, sl].reshape(kv, S, hd).to(opd)
+    v_l = v_pages[:, sl].reshape(kv, S, hd).to(opd)
+    s = torch.einsum("bkgd,ksd->bkgs", q2, k_l).float() * (hd ** -0.5)
+    if k_scale is not None:
+        ksf = k_scale[:, sl].reshape(kv, S)                # [KV, S] fp32
+        s = s * (ksf / _MAX_INT8)[None, :, None, :]
+    dev = q.device
+    tok_owner = page_owner.to(dev).repeat_interleave(page_size)       # [S]
+    tok_pos = (page_pos.to(dev).repeat_interleave(page_size) * page_size
+               + torch.arange(page_size, device=dev).repeat(stride))
+    visible = ((tok_owner[None] == torch.arange(B, device=dev)[:, None])
+               & (tok_pos[None] < lengths[:, None]))      # [B, S]
+    s = s.masked_fill(~visible[:, None, None], float("-inf"))
+    # a row with no visible token (a slot that owns no page) would softmax
+    # to NaN, write NaN K/V into the trash page from the next layer on and
+    # poison every row through its zero weights there: keep it at zero.
+    # JAX's copy has no such guard
+    w = torch.softmax(s, dim=-1).masked_fill(
+        ~visible.any(dim=-1)[:, None, None, None], 0.0)
+    if k_scale is not None:
+        vsf = v_scale[:, sl].reshape(kv, S)
+        w = w * (vsf / _MAX_INT8)[None, :, None, :]
+    out = torch.einsum("bkgs,ksd->bkgd", w.to(opd), v_l).float()
+    return out.reshape(B, 1, -1, hd).to(q.dtype)
 
 
 def init_paged_pool(cfg: VLMConfig, *, n_pages: int, page_size: int,
@@ -143,11 +254,14 @@ def _finish(h, llm_params, llm_cfg):
 
 @torch.no_grad()
 def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
-                     n_pages: int, paged_attn: str = "gather"):
+                     n_pages: int, paged_attn: str = "gather",
+                     page_owner: Optional[torch.Tensor] = None,
+                     page_pos: Optional[torch.Tensor] = None):
     """One greedy token for every slot, K/V in pages. Writes each row's new
     K/V into its page in place (inactive rows into the trash page) and
     returns (pool, next ids [B] int32, fp32 logits [B, V]); the per-slot
-    cursors are left to the caller."""
+    cursors are left to the caller. ``"poolmask"`` needs the host's
+    ``page_owner`` / ``page_pos`` (``[n_pages + 1]`` int32)."""
     B, MP = pool["page_table"].shape
     stride = n_pages + 1
     kv, hd = llm_cfg.n_kv_heads, llm_cfg.head_dim
@@ -208,9 +322,21 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
             attn = multi_head_attention(
                 q, k_c.to(h.dtype), v_c.to(h.dtype), kv_mask=kv_mask,
                 causal=True, q_offset=t, impl="torch")
+        elif paged_attn == "gather2":
+            attn = _gather2_attention(
+                q, pool["k"], pool["v"], pool.get("k_scale"),
+                pool.get("v_scale"), table_l, lengths, page_size=page_size)
+        elif paged_attn == "pagescan":
+            attn = _pagescan_attention(
+                q, pool["k"], pool["v"], pool.get("k_scale"),
+                pool.get("v_scale"), table_l, lengths, page_size=page_size)
+        elif paged_attn == "poolmask":
+            attn = _poolmask_attention(
+                q, pool["k"], pool["v"], pool.get("k_scale"),
+                pool.get("v_scale"), i, stride, page_owner, page_pos,
+                lengths, page_size=page_size)
         else:
-            raise ValueError(f"per-step paged_attn must be 'kernel' or "
-                             f"'gather', got {paged_attn!r}")
+            raise ValueError(f"unknown per-step paged_attn {paged_attn!r}")
         h = _attn_mlp_tail(h, attn.reshape(B, 1, -1), p, llm_cfg.norm_eps)
     logits, nxt = _finish(h, llm_params, llm_cfg)
     return pool, nxt, logits
@@ -346,6 +472,8 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
 def _paged_decode_burst(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                         n_pages: int, burst: int, eos_id: int,
                         paged_attn: str = "gather",
+                        page_owner: Optional[torch.Tensor] = None,
+                        page_pos: Optional[torch.Tensor] = None,
                         uniform_write: bool = False):
     """``burst`` greedy tokens for every active slot. The caller must have
     allocated pages covering ``len + burst`` for every active slot.
@@ -366,7 +494,9 @@ def _paged_decode_burst(llm_params, llm_cfg, pool: Dict, *, page_size: int,
         pool, nxt, _ = _paged_decode_step(llm_params, llm_cfg, pool,
                                          page_size=page_size,
                                          n_pages=n_pages,
-                                         paged_attn=paged_attn)
+                                         paged_attn=paged_attn,
+                                         page_owner=page_owner,
+                                         page_pos=page_pos)
         emitted.append(torch.where(active, cur, eos_id))
         remaining = torch.where(active, pool["remaining"] - 1,
                                 pool["remaining"])
@@ -600,9 +730,9 @@ class PagedServingEngine:
 
     ``paged_attn``: "burstdense" (per-burst page gather + dense decode),
     "kernel" (the hand-written paged-attention kernel on the card, its
-    plain version on the CPU), "gather" (per-step gather + plain
-    attention) or "auto" (= "burstdense", the JAX package's default).
-    "gather2", "pagescan" and "poolmask" are not ported and raise.
+    plain version on the CPU), "gather" / "gather2" / "pagescan" /
+    "poolmask" (per-step plain variants, see the module docstring) or
+    "auto" (= "burstdense", the JAX package's default).
     ``params`` must lie on ``device``, and so must the pixel values (or
     ``{"patches"}``) passed to ``submit``.
     """
@@ -623,9 +753,6 @@ class PagedServingEngine:
                              f"{self.device}")
         if paged_attn == "auto":
             paged_attn = "burstdense"
-        if paged_attn in NOT_PORTED_MODES:
-            raise ValueError(f"paged_attn={paged_attn!r} is not ported to "
-                             f"emmax_torch; use one of {PAGED_ATTN_MODES}")
         if paged_attn not in PAGED_ATTN_MODES:
             raise ValueError(f"unknown paged_attn {paged_attn!r}; expected "
                              f"one of {PAGED_ATTN_MODES} or 'auto'")
@@ -689,6 +816,9 @@ class PagedServingEngine:
         into refcounted shared pages; each request then prefills only its
         prompt tail (``_prefill_tail_into_pool``), and the shared full
         pages are held once."""
+        if self.paged_attn == "poolmask":
+            raise ValueError("poolmask's single-owner page mask cannot "
+                             "express shared pages; use burstdense/gather")
         if not prompts:
             raise ValueError("submit_shared needs at least one prompt")
         ps = self.page_size
@@ -871,6 +1001,22 @@ class PagedServingEngine:
                 req.page_ids.append(page)
         return True
 
+    def _ownership(self) -> Dict[str, torch.Tensor]:
+        """poolmask's page ownership for the next burst, from the running
+        requests (empty in the other modes): ``page_owner [n_pages + 1]``
+        (slot id, -1 = free; index n_pages is the trash page) and
+        ``page_pos`` (each page's rank in its slot's table)."""
+        if self.paged_attn != "poolmask":
+            return {}
+        owner = np.full((self.n_pages + 1,), -1, np.int32)
+        pos = np.zeros((self.n_pages + 1,), np.int32)
+        for slot, req in self.running.items():
+            own = len(req.page_ids)          # a shared prefix comes first
+            owner[req.page_ids] = slot
+            pos[req.page_ids] = req.n_pages - own + np.arange(own)
+        return {"page_owner": torch.from_numpy(owner).to(self.device),
+                "page_pos": torch.from_numpy(pos).to(self.device)}
+
     def warmup(self) -> List[bool]:
         """Build the hand-written kernels a card engine launches, so no
         request pays the build (eager PyTorch compiles nothing per burst
@@ -909,7 +1055,7 @@ class PagedServingEngine:
             self.params["llm"], self.cfg.llm, self.pool,
             page_size=self.page_size, n_pages=self.n_pages, burst=self.burst,
             eos_id=self.tokenizer.eos_id, paged_attn=self.paged_attn,
-            uniform_write=uniform)
+            uniform_write=uniform, **self._ownership())
         packed = packed.cpu().numpy()          # one fetch per burst
         emitted = packed[:, :self.burst]
         active_after = packed[:, self.burst].astype(bool)

@@ -31,6 +31,13 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q8": q, "scale": scale}
 
 
+def dequantize_weight(qw: Dict[str, torch.Tensor],
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``{"q8", "scale"}`` -> the weight in ``dtype`` (int8 codes times the
+    fp32 per-channel scale, rounded once)."""
+    return (qw["q8"].float() * qw["scale"]).to(dtype)
+
+
 def weight_quantizer(bits: int, group: int = DEFAULT_GROUP) -> Callable:
     """The quantizer of one weight: int8 per-channel or int4 group-wise."""
     if bits == 8:
@@ -42,12 +49,35 @@ def weight_quantizer(bits: int, group: int = DEFAULT_GROUP) -> Callable:
 
 def quantize_lm_head(lm_head, qfn: Callable):
     """A dense lm_head quantized by ``qfn``; Phi's ``{"kernel", "bias"}``
-    with its kernel quantized; an already quantized head as it is."""
+    with its kernel quantized; an already quantized head, or none, as it
+    is."""
+    if lm_head is None:
+        return None
     if isinstance(lm_head, dict):
         if "kernel" in lm_head and not isinstance(lm_head["kernel"], dict):
             return {**lm_head, "kernel": qfn(lm_head["kernel"])}
         return lm_head
     return qfn(lm_head)
+
+
+def _quantize_llm(llm_params: Dict[str, Any], qfn: Callable
+                  ) -> Dict[str, Any]:
+    """A new LLM tree: the decoder's matmul weights and lm_head quantized
+    by ``qfn`` (the embedding and norms as they are)."""
+    llm = dict(llm_params)
+    layers = dict(llm["layers"])
+    for key in QUANT_KEYS:
+        if key in layers and not isinstance(layers[key], dict):
+            layers[key] = qfn(layers[key])
+    llm["layers"] = layers
+    llm["lm_head"] = quantize_lm_head(llm.get("lm_head"), qfn)
+    return llm
+
+
+def quantize_llm_params(llm_params: Dict[str, Any]) -> Dict[str, Any]:
+    """The LLM tree with its decoder's matmul weights and lm_head in int8
+    per-channel (a new tree; the embedding and norms unchanged)."""
+    return _quantize_llm(llm_params, quantize_weight)
 
 
 def quantize_vlm_params(params: Dict[str, Any], bits: int = 8,
@@ -61,11 +91,4 @@ def quantize_vlm_params(params: Dict[str, Any], bits: int = 8,
     if group is not None and bits != 4:
         raise ValueError("group is only meaningful for bits=4")
     qfn = weight_quantizer(bits, DEFAULT_GROUP if group is None else group)
-    llm = dict(params["llm"])
-    layers = dict(llm["layers"])
-    for key in QUANT_KEYS:
-        if key in layers and not isinstance(layers[key], dict):
-            layers[key] = qfn(layers[key])
-    llm["layers"] = layers
-    llm["lm_head"] = quantize_lm_head(llm["lm_head"], qfn)
-    return {**params, "llm": llm}
+    return {**params, "llm": _quantize_llm(params["llm"], qfn)}

@@ -65,7 +65,15 @@ def test_import_loads_no_jax():
             "emmax_torch.data.augment", "emmax_torch.data.rlds",
             "emmax_torch.data.oxe", "emmax_torch.data.rlds_vla",
             "emmax_torch.data.framestore",
-            "emmax_torch.vla.materialize"} <= set(MODULES)
+            "emmax_torch.vla.materialize",
+            "emmax_torch.experiments", "emmax_torch.experiments.gripper",
+            "emmax_torch.experiments.kinematic_sim",
+            "emmax_torch.experiments.policy",
+            "emmax_torch.experiments.transforms3d",
+            "emmax_torch.experiments.widowx", "emmax_torch.util.seeding",
+            "emmax_torch.util.profiling", "emmax_torch.eval_success_rate",
+            "emmax_torch.simpler_eval",
+            "emmax_torch.bridge_eval"} <= set(MODULES)
 
 
 def test_pretrain_modules_import_no_opencv():

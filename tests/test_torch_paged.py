@@ -370,8 +370,7 @@ def test_oversized_requests_are_rejected(setup):
     assert not eng.queue and not small.queue
 
 
-@pytest.mark.parametrize("mode", ["gather2", "pagescan", "poolmask",
-                                  "flash"])
+@pytest.mark.parametrize("mode", ["flash"])
 def test_unported_paged_attn_modes_raise(setup, mode):
     with pytest.raises(ValueError, match=repr(mode)):
         setup.engine(paged_attn=mode)
