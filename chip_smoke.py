@@ -34,6 +34,17 @@ Phases, each raising on failure (the script then exits non-zero):
    beside it);
 4. the tiny config on the card (fp32, through the kernels) against the
    same weights on the CPU (plain versions): identical greedy tokens;
+   4c. ``hub``: a tiny run dir (fp32, vocab 32064, seeded) exported by
+   ``python -m emmax_torch.convert_weights --mode export_hf`` on this
+   machine, which has no ``transformers`` (the six files of the JAX
+   exporter and the ``csrc/`` copy written), loaded from the export
+   directory alone through the port's facade (``EmmaXForVision2Seq`` /
+   ``EmmaXProcessor.from_pretrained``) on the card and on the CPU:
+   ``predict_action`` gives the same action, the card's through the fp32
+   flash forward (launches counted); then ``verify_emmax.main`` on the
+   export (bf16 and fp32 on the card). The standalone bundle's own kernel
+   build (``modeling_emmax.py`` building ``flash_fwd.cu`` from the export's
+   ``csrc/``) runs outside the smoke, ``scripts/chip_standalone_bundle.py``;
    4b. the tiny config with an action-bin region (vocab 2048) on the
    ``SpeculativeEngine`` (linear drafts, the (5, 3) tree, ``draft_layers=1``,
    the int8 cache; each over three closed-loop frames with prefix tail 24):
@@ -50,7 +61,8 @@ Phases, each raising on failure (the script then exits non-zero):
    each phase's device busy time, and each phase's bound;
 5b. ``checkpoint``: phase 5's seeded full-width bf16 params written by
    ``emmax_torch.convert_weights`` as OpenVLA-layout safetensors (shards of
-   at most 5 GB, the index, the flat config.json with ``norm_stats``) into
+   at most 5 GB, the index, config.json in ``EmmaXVLAConfig``'s layout
+   with ``norm_stats``, the Hub processor and remote-code files) into
    a temporary directory and served back through ``load_vla(dir)``: in
    bf16 every leaf equal to the params in memory, the in-memory model's
    greedy tokens and text, the written statistics; with
@@ -185,8 +197,16 @@ Phases, each raising on failure (the script then exits non-zero):
    proprio and actions of width 7 with a 0/1 gripper) written by the
    port's TFRecord writer into a train and a val shard; one state at
    vla-train's cut and batch drives (a) ``RLDS_GCOT_STEPS`` steps of
-   ``run_discrete_vla_training`` over ``GCOTDataset`` records keyed to the
-   episodes' frames through ``RLDSFrameSource`` (IFAST decode), and (b)
+   ``run_discrete_vla_training`` over ``GCOTDataset`` records that the
+   port's GCOT pipeline generates from the same shards
+   (``gcot_generate_plans.main``: soft segmentation through the port's
+   HDBSCAN and the ``HeuristicAnnotator``; ``gcot_create_dataset.main`` in
+   ``single_policy`` mode; each episode kept or dropped as its segments
+   predict (the reference drops one whose clustering returns to an
+   earlier cluster), sum(T - 1) samples over the kept ones, each
+   ``current_image_path`` a frame of ``RLDSFrameSource.index``; segment
+   counts and generation seconds printed) with frames through
+   ``RLDSFrameSource`` (IFAST decode), and (b)
    ``RLDS_VLA_STEPS`` steps of ``run_vla_training`` over
    ``get_vla_dataset_and_collator(..., "bridge_orig", image_aug=True,
    resize_resolution=(224, 224))`` through ``StreamingBatcher`` and the
@@ -263,8 +283,8 @@ Phases, each raising on failure (the script then exits non-zero):
    prefill and training shapes at D 80, int4 at Phi's and Mistral's
    weights). One JSON line.
 
-Phases 4b, 5b, 10b, 7, 7b, 11, 12, 12b, 12c, 13 and 14 run after phase 10 (4b with
-phase 4, 5b with phase 5); ``--kernels-only`` skips them. The line
+Phases 4b, 4c, 5b, 10b, 7, 7b, 11, 12, 12b, 12c, 13 and 14 run after phase 10 (4b and
+4c with phase 4, 5b with phase 5); ``--kernels-only`` skips them. The line
 before the last is the card's name and power limit; the one before it a
 JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -353,6 +373,15 @@ MESH_VLA_STEPS = 2
 # cut and batch
 RLDS_EPISODES, RLDS_VAL, RLDS_STEPS_RANGE = 8, 2, (24, 40)
 RLDS_GCOT_STEPS, RLDS_VLA_STEPS, RLDS_SHUFFLE = 2, 3, 64
+# hub: the tiny model exported (fp32, the hermetic tokenizer's padded vocab)
+# and served from the export directory; verify_emmax's new tokens
+HUB_VOCAB, HUB_VERIFY_NEW = 32064, 16
+HUB_STATS = {"bridge_orig": {"action": {
+    "q01": [-0.05] * 6 + [0.0], "q99": [0.05] * 6 + [1.0],
+    "mask": [True] * 6 + [False]}}}
+HUB_FILES = {"model.safetensors", "config.json", "preprocessor_config.json",
+             "modeling_emmax.py", "configuration_emmax.py",
+             "processing_emmax.py"}
 # zoo: the Prismatic backbones beyond Emma-X's (emmax_torch/models/
 # materialize.py): the new vision backbones' encodes, phi-2+3b served and
 # trained, llama2+13b and mistral-v0.1+7b served; ZOO_NEW new tokens a
@@ -1086,6 +1115,94 @@ def tiny_parity(dev):
         log(f"tiny parity ({quantize or 'fp32'}): card == CPU, 24 tokens")
 
 
+def hub_step(dev, kernels) -> dict:
+    """4c: the tiny model's Hugging Face export made and served on this
+    machine (no ``transformers``): ``export_hf``'s files, the export
+    directory through the facade on the card (fp32 flash forward) and on
+    the CPU (plain) with the same action, then ``verify_emmax``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from emmax_torch import convert_weights as cw
+    from emmax_torch import verify_emmax
+    from emmax_torch.extern.hf_facade import EmmaXForVision2Seq
+    from emmax_torch.extern.hf_processor import EmmaXProcessor
+    from emmax_torch.models.load import save_pretrained
+    from emmax_torch.models.vlm import init_vlm_params, tiny_vlm_config
+
+    import importlib.util
+
+    t_step = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="emmax_hub_"))
+    try:
+        generator = torch.Generator("cpu")
+        generator.manual_seed(0)
+        save_pretrained(tmp / "run", {
+            "vision_backbone_id": "tiny", "llm_backbone_id": "tiny",
+            "arch_specifier": "fused-gelu-mlp",
+            "text_config": {"vocab_size": HUB_VOCAB}},
+            init_vlm_params(generator, tiny_vlm_config(HUB_VOCAB)))
+        (tmp / "stats.json").write_text(json.dumps(HUB_STATS))
+        out = tmp / "export"
+        t0 = time.perf_counter()
+        cw.main(["--mode", "export_hf", "--src", str(tmp / "run"), "--dst",
+                 str(out), "--base_vlm", "tiny", "--export_dtype", "float32",
+                 "--dataset_statistics", str(tmp / "stats.json")])
+        export_s = time.perf_counter() - t0
+        files = {p.name for p in out.iterdir()}
+        if not HUB_FILES | {"csrc"} <= files:
+            raise AssertionError(f"hub: export wrote {sorted(files)}")
+        frame = np.random.default_rng(9).integers(0, 256, (256, 256, 3),
+                                                  dtype=np.uint8)
+        runs = {}
+        for device in ("cpu", dev):
+            model = EmmaXForVision2Seq.from_pretrained(
+                out, dtype=torch.float32, device=device)
+            proc = EmmaXProcessor.from_pretrained(
+                out, tokenizer=model.vla.tokenizer)
+            prompt, image = proc.get_prompt(TASK, frame)
+            inputs = proc(prompt, image)
+            if inputs["task"] != TASK:
+                raise AssertionError(f"hub: task {inputs['task']!r}")
+            for k in kernels:
+                k.reset_counts()
+            t0 = time.perf_counter()
+            action = model.predict_action(inputs, unnorm_key="bridge_orig")
+            if device != "cpu":
+                torch.cuda.synchronize(dev)
+            runs[str(device)] = {
+                "action": np.asarray(action).tolist(),
+                "s": time.perf_counter() - t0,
+                "flash_fwd_fp32": kernels[0].launches_by.get("float32", 0)}
+            del model
+        card, cpu = runs[str(dev)], runs["cpu"]
+        if card["action"] != cpu["action"]:
+            raise AssertionError(f"hub: card action {card['action']} != CPU "
+                                 f"{cpu['action']}")
+        if card["flash_fwd_fp32"] == 0 or cpu["flash_fwd_fp32"] != 0:
+            raise AssertionError(f"hub: fp32 flash forward launches {runs}")
+        t0 = time.perf_counter()
+        verify = verify_emmax.main(verify_emmax.VerifyConfig(
+            checkpoint=out, device="cuda", max_new_tokens=HUB_VERIFY_NEW))
+        verify_s = time.perf_counter() - t0
+        for name, v in verify.items():
+            a = v["predict_action"]
+            if a.shape != (7,) or not np.isfinite(a).all():
+                raise AssertionError(f"hub verify {name}: {a}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {"files": sorted(files), "export_s": export_s,
+              "transformers_here": importlib.util.find_spec(
+                  "transformers") is not None,
+              "runs": runs, "actions_equal": True, "verify_s": verify_s,
+              "verify": {k: v["predict_action"].tolist()
+                         for k, v in verify.items()},
+              "step_s": time.perf_counter() - t_step}
+    log("hub " + json.dumps(result))
+    return result
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -1403,8 +1520,9 @@ def checkpoint_phase(dev, kernels) -> dict:
     seed=0)``):
 
     1. an OpenVLA-layout Hugging Face dir (``convert_weights.save_hf``:
-       shards of at most 5 GB, their index, the flat config.json with
-       ``norm_stats``) -> ``load_vla(dir)`` in bf16 (every leaf equal, the
+       shards of at most 5 GB, their index, ``config.json`` in
+       ``EmmaXVLAConfig``'s layout with ``norm_stats``, and the Hub
+       processor and remote-code files) -> ``load_vla(dir)`` in bf16 (every leaf equal, the
        in-memory model's greedy tokens, the written stats, the host heap
        grown by less than one bf16 stacked leaf: the leaves go straight
        from the mapped shards to the card) and with
@@ -3089,6 +3207,63 @@ def rlds_write_episodes(root) -> dict:
             "write_s": time.perf_counter() - t0}
 
 
+def rlds_gcot_records(root, source) -> dict:
+    """The ``rlds`` phase's GCOT records, made by the port's pipeline from
+    the phase's shards: ``gcot_generate_plans.main`` per split (soft
+    segmentation through the port's HDBSCAN, ``HeuristicAnnotator``) then
+    ``gcot_create_dataset.main`` in ``single_policy`` mode.
+
+    The reference keeps an episode only if its segment ids, numbered by
+    first appearance, change as many times as there are ids; an episode
+    whose clustering returns to an earlier cluster is dropped as "wrong
+    segment number" (the JAX package the same). Raises unless each
+    episode's verdict is the one its segments predict, no other kind of
+    rejection occurs, each split keeps one episode or more, the samples
+    number sum(T - 1) over the kept episodes, and each
+    ``current_image_path`` names a frame of ``source.index``."""
+    from emmax_torch import gcot_create_dataset as create
+    from emmax_torch import gcot_generate_plans as plans_cli
+    from emmax_torch.data.gcot import parse_image_path
+
+    t0 = time.perf_counter()
+    segments, kept = {}, []
+    want_reports = {}
+    for split in ("train", "val"):
+        plans = plans_cli.main(plans_cli.PlansConfig(
+            data_dir=root, split=split, out_dir=root / "gcot_plans",
+            segmentation="soft"))
+        segments[split] = [max(segs) for _, segs, _ in plans.values()]
+        for key, (_, segs, _) in plans.items():
+            runs = 1 + sum(a != b for a, b in zip(segs, segs[1:]))
+            if runs == max(segs):
+                kept.append(key)
+        n_kept = sum(k in kept for k in plans)
+        want_reports[split] = {"valid": n_kept}
+        if n_kept < len(plans):
+            want_reports[split]["wrong segment number"] = len(plans) - n_kept
+    records, _, reports = create.main(create.AssembleConfig(
+        data_dir=root, plans_dir=root / "gcot_plans",
+        out_root=root / "gcot_dataset", tag="single_policy",
+        mode="single_policy"))
+    generate_s = time.perf_counter() - t0
+    for split, want in want_reports.items():
+        if reports.get(split) != want or not want["valid"]:
+            raise AssertionError(f"gcot {split}: {reports.get(split)}, want "
+                                 f"{want}")
+    want = sum(len(source.index[k]) - 1 for k in kept)
+    if len(records) != want:
+        raise AssertionError(f"gcot: {len(records)} samples, want {want}")
+    for r in records:
+        key, i = parse_image_path(r["current_image_path"])
+        if key not in kept or not 0 <= i < len(source.index[key]):
+            raise AssertionError(f"gcot: {r['current_image_path']} names "
+                                 "no frame of a kept episode")
+    out = {"segments": segments, "reports": reports, "samples": len(records),
+           "generate_s": generate_s}
+    log("rlds gcot generation " + json.dumps(out))
+    return {"records": records, **out}
+
+
 def _waited(it, record: list):
     """``it`` with the seconds each ``next`` blocked appended to
     ``record``."""
@@ -3114,8 +3289,7 @@ def rlds_phase(dev, kernels):
     from emmax_torch.data.collators import BatchLoader, collate_train
     from emmax_torch.data.framestore import (FrameStore,
                                              pack_rlds_to_framestore)
-    from emmax_torch.data.gcot import (GCOTDataset, key_items_to_frames,
-                                       make_dummy_gcot_items)
+    from emmax_torch.data.gcot import GCOTDataset
     from emmax_torch.data.prefetch import PrefetchingLoader
     from emmax_torch.data.rlds import RLDSFrameSource
     from emmax_torch.data.rlds_vla import StreamingBatcher
@@ -3177,14 +3351,15 @@ def rlds_phase(dev, kernels):
                     raise AssertionError(f"rlds {name} launched no {k}")
             return losses
 
-        # (a) Emma-X's GCOT loop with frames from the RLDS shards
+        # (a) Emma-X's GCOT loop on records the port's GCOT pipeline made
+        # from the shards, with frames from the shards
         t0 = time.perf_counter()
         source = RLDSFrameSource(tmp)
         index_s = time.perf_counter() - t0
-        items = key_items_to_frames(make_dummy_gcot_items(
-            RLDS_GCOT_STEPS * VLA_B), source.index)
-        dataset = GCOTDataset(items, at, tokenizer, source,
-                              data_mix="movement_policy", mask_inst=True)
+        generated = rlds_gcot_records(tmp, source)
+        dataset = GCOTDataset(generated.pop("records"), at, tokenizer,
+                              source, data_mix="movement_policy",
+                              mask_inst=True)
         loader = BatchLoader(dataset, VLA_B, lambda s: collate_train(
             s, tokenizer.pad_id, max_length=cfg.llm.max_seq_len), seed=7)
         gcot_wait: list = []
@@ -3287,6 +3462,7 @@ def rlds_phase(dev, kernels):
     vla_steps = list(vla_metrics.step_times)
     out = {"phase": "rlds", **data, "decoder_layers": VLA_LAYERS,
            "batch": VLA_B, "codec_build_s": build_s, "index_s": index_s,
+           "gcot_generation": generated,
            "gcot": {"steps": RLDS_GCOT_STEPS, "losses": gcot_losses,
                     "launches": gcot_launches, "loop_s": gcot_s,
                     "step_s": gcot_steps,
@@ -4589,6 +4765,8 @@ def main(argv) -> int:
     tiny_parity(dev)
     tiny_steps = tiny_batched_parity(dev)
     tiny_spec = tiny_spec_parity(dev)
+    log_phase("hub")
+    hub_step(dev, serving_kernels)
     log_phase("run_path")
     bf16 = run_path(dev, None, kernels)
     if bf16["launches"]["flash_fwd"] == 0:

@@ -7,15 +7,17 @@ Port of ``vla-scripts/extern/convert_weights.py``:
 - ``--mode import_hf``: a Hugging Face dir (OpenVLA safetensors naming,
   sharded or not) -> a run dir;
 - ``--mode export_pt``: a run dir -> a reference-layout ``.pt``;
-- ``--mode export_hf``: a run dir -> ``model.safetensors`` (or shards of
-  at most 5 GB with ``model.safetensors.index.json``) in the OpenVLA
-  naming, and a flat ``config.json`` with the backbone ids,
-  ``text_config`` and ``norm_stats``. ``emmax_tpu.models.load`` and
-  ``emmax_torch.models.load`` both read it.
-
-The ``transformers`` side of the JAX exporter (the ``EmmaXVLAConfig``
-config, the processor's ``save_pretrained``, the remote-code files) is not
-written here.
+- ``--mode export_hf``: a run dir -> the Hub surface the JAX exporter
+  writes: ``model.safetensors`` (or shards of at most 5 GB with
+  ``model.safetensors.index.json``) in the OpenVLA naming; ``config.json``
+  as ``EmmaXVLAConfig(...).save_pretrained`` writes it, with ``auto_map``
+  and ``norm_stats`` (a flat blob for the tiny or an unregistered
+  backbone, as in JAX); ``preprocessor_config.json``; the self-contained
+  ``modeling_emmax.py`` (``extern/standalone.py``) with
+  ``configuration_emmax.py`` and ``processing_emmax.py`` beside it; and a
+  copy of ``csrc/``, from which the bundle builds its kernels on the card.
+  None of it needs ``transformers``. ``emmax_tpu.models.load`` and
+  ``emmax_torch.models.load`` both read the directory.
 
     python -m emmax_torch.convert_weights --mode import_pt \\
         --src checkpoints/step-....pt --dst runs/imported \\
@@ -100,24 +102,88 @@ def save_reference_pt(params, vlm_cfg, out, dtype=None) -> Path:
     return out
 
 
+def write_hf_config(out, vlm_cfg, ids: dict, norm_stats=None,
+                    dtype=torch.bfloat16) -> Path:
+    """``config.json``: ``EmmaXVLAConfig``'s ``save_pretrained`` layout
+    with ``auto_map``, or for a backbone the Hub config does not know (the
+    tiny one) the flat blob that both loaders read."""
+    from emmax_torch.extern.hf_config import AUTO_MAP, write_config_json
+
+    dtype_name = str(dtype).removeprefix("torch.")
+    text_config = {"vocab_size": vlm_cfg.llm.vocab_size, "pad_token_id": 32000}
+    try:
+        return write_config_json(
+            out, vision_backbone_id=ids["vision_backbone_id"],
+            llm_backbone_id=ids["llm_backbone_id"],
+            arch_specifier=ids["arch_specifier"],
+            image_resize_strategy=ids["image_resize_strategy"],
+            text_config=text_config, norm_stats=norm_stats,
+            torch_dtype=dtype_name, auto_map=AUTO_MAP)
+    except ValueError:
+        blob = {"model_type": "emmax-openvla", **ids,
+                "torch_dtype": dtype_name, "auto_map": AUTO_MAP,
+                "text_config": text_config}
+        if norm_stats is not None:
+            blob["norm_stats"] = norm_stats
+        path = Path(out) / "config.json"
+        path.write_text(json.dumps(blob, indent=2))
+        return path
+
+
+REMOTE_CODE_STUB = '''\
+"""Remote-code entry for `{auto}`: re-exports from the self-contained
+`modeling_emmax.py` bundled in this directory (no package install needed)."""
+
+try:  # HF dynamic-module loading imports these as a package
+    from .modeling_emmax import {name}  # noqa: F401
+except ImportError:  # plain sys.path import from the export dir
+    from modeling_emmax import {name}  # noqa: F401
+'''
+
+
+def write_hub_files(out, vlm_cfg, ids: dict) -> None:
+    """``preprocessor_config.json``, ``modeling_emmax.py`` (the bundle),
+    ``configuration_emmax.py``, ``processing_emmax.py`` and ``csrc/``."""
+    import shutil
+
+    from emmax_torch.extern.hf_processor import (EmmaXImagePipeline,
+                                                 EmmaXProcessor)
+    from emmax_torch.extern.standalone import PKG_ROOT, build_standalone_source
+    from emmax_torch.vla.tokenizer import ByteLevelTokenizer
+
+    out = Path(out)
+    try:
+        images = EmmaXImagePipeline.for_backbone(
+            ids["vision_backbone_id"], ids["image_resize_strategy"])
+    except KeyError:   # the tiny towers: sizes from the VLM config
+        images = EmmaXImagePipeline(
+            tower_names=[n for n, _ in vlm_cfg.vision],
+            input_sizes=[v.img_size for _, v in vlm_cfg.vision],
+            image_resize_strategy=ids["image_resize_strategy"])
+    EmmaXProcessor(images, ByteLevelTokenizer()).save_pretrained(out)
+    (out / "modeling_emmax.py").write_text(build_standalone_source())
+    for fname, (auto, name) in {
+            "configuration_emmax.py": ("AutoConfig", "EmmaXVLAConfig"),
+            "processing_emmax.py": ("AutoProcessor", "EmmaXProcessor")}.items():
+        (out / fname).write_text(REMOTE_CODE_STUB.format(auto=auto,
+                                                         name=name))
+    shutil.copytree(PKG_ROOT / "csrc", out / "csrc", dirs_exist_ok=True)
+
+
 def save_hf(params, vlm_cfg, ids: dict, out, norm_stats=None,
             dtype=torch.bfloat16, max_shard_bytes: float = 5e9) -> list:
     """``params`` -> a Hugging Face dir in the OpenVLA naming: safetensors
-    shards (with the index when there are several) and the flat
-    ``config.json``. Returns the shard paths."""
+    shards (with the index when there are several), ``config.json``
+    (:func:`write_hf_config`), and the processor and remote-code files
+    (:func:`write_hub_files`). Returns the shard paths."""
     from emmax_torch.models.convert import params_to_hf_sd
     from emmax_torch.models.safetensors_io import save_dir
 
     out = Path(out)
     sd = params_to_hf_sd(params, vlm_cfg, dtype)
     shards = save_dir(sd, out, max_shard_bytes)
-    blob = {"model_type": "emmax-openvla", **ids,
-            "torch_dtype": str(dtype).removeprefix("torch."),
-            "text_config": {"vocab_size": vlm_cfg.llm.vocab_size,
-                            "pad_token_id": 32000}}
-    if norm_stats is not None:
-        blob["norm_stats"] = norm_stats
-    (out / "config.json").write_text(json.dumps(blob, indent=2))
+    write_hf_config(out, vlm_cfg, ids, norm_stats, dtype)
+    write_hub_files(out, vlm_cfg, ids)
     return shards
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: ``emmax_torch`` imports neither JAX nor
 ``ml_dtypes`` nor anything of ``emmax_tpu``, and importing it loads none
-of ``transformers``, ``tensorflow``, OpenCV or PIL (the card machine has
-none of them); the weight bridge keeps every byte; nothing silently runs
+of ``transformers``, ``tensorflow``, OpenCV, PIL or scikit-learn (the card
+machine has none of them); the weight bridge keeps every byte; nothing silently runs
 on the CPU when the card is asked for."""
 
 import re
@@ -30,7 +30,7 @@ def test_import_loads_no_jax():
             "    importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
             " in ('jax', 'jaxlib', 'ml_dtypes', 'emmax_tpu', 'transformers',"
-            " 'tensorflow', 'cv2', 'PIL'))))\n")
+            " 'tensorflow', 'cv2', 'PIL', 'sklearn'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
@@ -73,7 +73,43 @@ def test_import_loads_no_jax():
             "emmax_torch.experiments.widowx", "emmax_torch.util.seeding",
             "emmax_torch.util.profiling", "emmax_torch.eval_success_rate",
             "emmax_torch.simpler_eval",
-            "emmax_torch.bridge_eval"} <= set(MODULES)
+            "emmax_torch.bridge_eval", "emmax_torch.gcot",
+            "emmax_torch.gcot.hdbscan", "emmax_torch.gcot.segmentation",
+            "emmax_torch.gcot.plans", "emmax_torch.gcot.assemble",
+            "emmax_torch.gcot.verbalize", "emmax_torch.gcot_generate_plans",
+            "emmax_torch.gcot_create_dataset",
+            "emmax_torch.extern.hf_config", "emmax_torch.extern.hf_processor",
+            "emmax_torch.extern.standalone", "emmax_torch.verify_emmax",
+            "emmax_torch.data.download", "emmax_torch.preprocess",
+            "emmax_torch.monitor_folder", "emmax_torch.convert_rlds",
+            "emmax_torch.additional_datasets.lrv_instruct",
+            "emmax_torch.additional_datasets.lvis_instruct_4v"} <= set(MODULES)
+
+
+def test_hf_modules_import_without_transformers():
+    """With ``transformers`` blocked, the Hub config and processor modules
+    import and their transformers-free writers work; only the
+    ``transformers`` classes raise ``ImportError``."""
+    code = ("import sys\n"
+            "sys.modules['transformers'] = None\n"
+            "import emmax_torch.extern.hf_config as c\n"
+            "import emmax_torch.extern.hf_processor as p\n"
+            "import emmax_torch.convert_weights\n"
+            "assert c.emmax_vla_config_dict()['model_type'] == "
+            "'emmax-openvla'\n"
+            "assert p.EmmaXImagePipeline().to_dict()['tower_names']\n"
+            "for mod, name in ((c, 'EmmaXVLAConfig'), (c, 'EmmaXConfig'),\n"
+            "                  (p, 'EmmaXImageProcessor')):\n"
+            "    try:\n"
+            "        getattr(mod, name)\n"
+            "    except ImportError:\n"
+            "        print('blocked', name)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.split("\n")[:3] == [
+        "blocked EmmaXVLAConfig", "blocked EmmaXConfig",
+        "blocked EmmaXImageProcessor"]
 
 
 def test_pretrain_modules_import_no_opencv():
