@@ -186,7 +186,7 @@ Phases, each raising on failure (the script then exits non-zero):
    decoder layer and the fp32 one only on a vision-cache miss; ms per
    frame (cold, warm median), verifier forwards per token, peak memory,
    the device-busy share of one profiled warm frame. Then ``load_vla(...,
-   speculative=True)`` -> ``generate_actions`` over 3 closed-loop frames
+   speculative=True)`` -> ``generate_actions`` over 2 closed-loop frames
    under int4 and then bf16 weights beside the plain ``EmmaXVLA``: request
    ms, the bf16 fence's verdict, and the same tokens or, at the first
    difference, a printed near-tie (``free_run``).
@@ -259,7 +259,24 @@ Phases, each raising on failure (the script then exits non-zero):
    tree) and restore (every rank's blocks) held equal to the live state;
    one 64-token request of ``ServingEngine`` on the sharded bf16 tree with
    the unsharded engine's tokens and launches (49 fp32 + 32 bf16 flash
-   forwards). The group is destroyed at the end.
+   forwards); then that tree quantized to int4 on the card and sharded,
+   each engine against its unwrapped run on the same int4 tree and
+   inputs: (a) ``SpeculativeEngine(..., mesh=)`` at the closed loop's
+   settings (``SPEC_KW``, vision cache 4 / 0.05) over its first
+   ``MESH_SPEC_FRAMES`` forced frames (``check_episode``'s gates: the
+   stream, the simulator's steps, full then tail prefills, 32 bf16 flash
+   forwards a frame and 49 fp32 on a vision miss, the int4 kernel) and
+   ``EmmaXVLA(..., speculative=True, mesh=)`` -> ``generate_actions``
+   over ``MESH_VLA_FRAMES`` closed-loop frames of ``MESH_NEW`` tokens
+   (the same text, actions, steps and prefills); (b)
+   ``PagedServingEngine(paged_attn="kernel", quantized_cache=True,
+   mesh=)`` and (c) ``ContinuousServingEngine(mesh=)`` over
+   ``MESH_PAGED_REQUESTS`` / ``MESH_SLOT_REQUESTS`` requests of
+   ``MESH_NEW`` tokens in one burst (the same tokens). Every case: the
+   same launches of the flash forward, the int4 kernel and the paged
+   kernel per frame or run as the unwrapped run (the paged kernel 0 in
+   (a), non-zero in (b)); frame, admission and burst ms of both runs.
+   The group is destroyed at the end.
 
 14. ``zoo``: the Prismatic backbones beyond Emma-X's (``models/
    materialize.py``) at full width and depth on seeded random weights made
@@ -352,7 +369,7 @@ SPEC_KW = dict(draft_k=12, prefix_tail=TAIL, quantized_cache=True,
                action_tree=(7, 5))
 SPEC_W_LINEAR, SPEC_W_TREE = 13, 43   # verifier widths: 12 + 1, 1 + 7 + 35
 SPEC_PROFILE_FRAME = 2
-FREE_FRAMES = 3                # the free runs' closed-loop frames
+FREE_FRAMES = 2                # the free runs' closed-loop frames
 # pretrain (``python -m emmax_torch.pretrain``): a LLaVA-format chat JSON of
 # PT_EXAMPLES, every PT_TEXT_EVERY-th text-only; seeded uint8 frames of
 # PT_FRAME (the typical LAION / COCO size of LLaVA-558k); the align stage
@@ -368,6 +385,13 @@ PT_CACHE_RTOL = 1e-6
 # kernels on the same tensors: 0 expected); vla-train steps through the mesh
 MESH_RTOL = 1e-6
 MESH_VLA_STEPS = 2
+# multigpu serving on the bf16 tree quantized to int4 on the card: the
+# closed loop's first MESH_SPEC_FRAMES forced frames at SPEC_KW,
+# MESH_VLA_FRAMES generate_actions frames of MESH_NEW tokens, and
+# MESH_PAGED_REQUESTS paged ("kernel", int8 pages) and MESH_SLOT_REQUESTS
+# slot-pool requests of MESH_NEW tokens, each in one burst
+MESH_SPEC_FRAMES, MESH_VLA_FRAMES = 2, 2
+MESH_PAGED_REQUESTS, MESH_SLOT_REQUESTS, MESH_NEW = 3, 2, 16
 # rlds: synthetic BridgeV2-shaped episodes (256x256 JPEG at quality 95,
 # proprio and actions of width 7), a train and a val shard, at vla-train's
 # cut and batch
@@ -689,14 +713,14 @@ def tinygemm_weight(q4: torch.Tensor, scale: torch.Tensor) -> tuple:
             torch.stack([scale, scale * 0.5], dim=-1).contiguous())
 
 
-def check_int4(dev, gen, name, M, D, F, layers=8):
+def check_int4(dev, gen, name, M, D, F, layers=8, time_fp32=True):
     """Kernel vs plain at one shape on layer 1 of a stacked weight: fp32 x
     (the scalar kernel) at FP32_RTOL, bf16 x (the tensor-core kernel) at
-    BF16_RTOL and the same bits on a rerun. Timed in bf16 over ``layers``
-    stacked layers in turn, so the weights come from HBM (the stack is
-    larger than the 50 MB L2) as in the decode loop. The library call is
-    held against the plain version too, and timed the same way on the same
-    weights repacked beforehand."""
+    BF16_RTOL and the same bits on a rerun. Timed over ``layers`` stacked
+    layers in turn, so the weights come from HBM (the stack is larger than
+    the 50 MB L2) as in the decode loop: bf16 x, then (``time_fp32``) fp32
+    x (``"fp32"``). The library call is held against the plain version
+    too, and timed the same way on the same weights repacked beforehand."""
     from emmax_torch.ops import int4_matmul as im
 
     group = 128
@@ -707,7 +731,8 @@ def check_int4(dev, gen, name, M, D, F, layers=8):
     x32 = torch.randn((M, D), generator=gen, device=dev)
     x = x32.bfloat16()
     got32 = im.int4_matmul_cuda(x32, q4[1], scale[1])
-    _, rel32 = rel_err(got32, im.int4_matmul_reference(x32, q4[1], scale[1]))
+    err32, rel32 = rel_err(got32, im.int4_matmul_reference(x32, q4[1],
+                                                            scale[1]))
     ref = im.int4_matmul_reference(x, q4[1], scale[1])
     got = im.int4_matmul_cuda(x, q4[1], scale[1])
     err, rel = rel_err(got, ref)
@@ -738,11 +763,27 @@ def check_int4(dev, gen, name, M, D, F, layers=8):
                                             packs[i][1])), iters=4 * layers)
     n_bytes = M * D * 2 + D // 2 * F + (D // group) * F * 2 + M * F * 2
     bms, by = bound_ms(n_bytes, 2.0 * M * D * F)
-    return {"name": "int4_matmul", "shape": name, "dtype": "bfloat16",
-            "max_abs_err": err, "rel_err": rel, "fp32_rel_err": rel32,
-            "library_rel_err": lib_rel, "ms": ms, "eager_ms": eager,
-            "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-            "bound_by": by}
+    rec = {"name": "int4_matmul", "shape": name, "dtype": "bfloat16",
+           "max_abs_err": err, "rel_err": rel, "fp32_rel_err": rel32,
+           "library_rel_err": lib_rel, "ms": ms, "eager_ms": eager,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+           "bound_by": by}
+    if time_fp32:
+        # fp32 x: the scalar kernel (no one-call library takes fp32 x:
+        # tinygemm takes bf16); its bound on fp32 x and out bytes and the
+        # fp32 (non-tensor) peak
+        ms32, eager32 = time_ms(rotate(
+            lambda i: im.int4_matmul_cuda(x32, q4[i], scale[i])),
+            iters=layers)
+        plain32, _ = time_ms(rotate(
+            lambda i: im.int4_matmul_reference(x32, q4[i], scale[i])),
+            iters=layers)
+        bms32, by32 = bound_ms(n_bytes + M * D * 2 + M * F * 2,
+                               2.0 * M * D * F, FP32_FLOPS_PER_S)
+        rec["fp32"] = {"ms": ms32, "eager_ms": eager32, "plain_ms": plain32,
+                       "library_ms": None, "bound_ms": bms32,
+                       "bound_by": by32, "max_abs_err": err32}
+    return rec
 
 
 def kernel_phase(dev):
@@ -1090,10 +1131,14 @@ def paged_kernel_phase(dev):
 
 def tiny_parity(dev):
     """The tiny config through the kernels (fp32) on the card against the
-    same weights through the plain versions on the CPU."""
+    same weights through the plain versions on the CPU; the int4 tree's
+    card request runs the int4 kernel on fp32 x (the scalar kernel), whose
+    launches by dtype are printed and must be non-zero."""
     from emmax_torch.models.load import load
     from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.ops import int4_matmul
 
+    launches = {}
     for quantize in (None, "int4"):
         cfg, params, tok, transforms, family = load(
             "tiny", dtype=torch.float32, quantize=quantize, device="cpu",
@@ -1106,13 +1151,18 @@ def tiny_parity(dev):
             vla = EmmaXVLA(cfg, p, tok, transforms, llm_family=family,
                            device=device)
             prompt = vla.get_prompt(TASK, gripper_position=(10, 20))
-            ids = vla.engine.generate_ids([prompt], vla._pixels(frame),
-                                          max_new_tokens=24)
+            ids, _, by = _counted([int4_matmul.KERNEL], lambda: (
+                vla.engine.generate_ids([prompt], vla._pixels(frame),
+                                        max_new_tokens=24)))
             texts.append(ids[0].tolist())
         if texts[0] != texts[1]:
             raise AssertionError(f"tiny {quantize}: card tokens {texts[1]} "
                                  f"!= CPU tokens {texts[0]}")
-        log(f"tiny parity ({quantize or 'fp32'}): card == CPU, 24 tokens")
+        launches[quantize or "fp32"] = by["int4_matmul"]
+        log(f"tiny parity ({quantize or 'fp32'}): card == CPU, 24 tokens; "
+            f"int4 launches by x dtype {by['int4_matmul']}")
+    if not launches["int4"].get("float32"):
+        raise AssertionError(f"tiny int4: no fp32-x int4 launch {launches}")
 
 
 def hub_step(dev, kernels) -> dict:
@@ -2199,9 +2249,9 @@ def sim_context(eng, prompt: str, prev: np.ndarray) -> np.ndarray:
     return np.concatenate([ids[0, -8:], prev, ids[0][mask[0]]])
 
 
-def closed_loop_episode(eng, inputs, pixels, fa_kernel,
-                        int4_kernel) -> list:
-    """One episode of ``SPEC_FRAMES`` frames, ``bench.py``'s ``episode``:
+def closed_loop_episode(eng, inputs, pixels, fa_kernel, int4_kernel,
+                        n_frames: int = SPEC_FRAMES) -> list:
+    """One episode of ``n_frames`` frames, ``bench.py``'s ``episode``:
     frame f decodes its forced stream drafting from frame f - 1's output
     (frame 0 from the seed template), its host frame keying the vision
     cache, its pixels frame 0's + 0.001 f. Per frame: host ms (ending in
@@ -2209,7 +2259,7 @@ def closed_loop_episode(eng, inputs, pixels, fa_kernel,
     kernel's launches."""
     streams, prev, _, frames = inputs
     rows = []
-    for f in range(SPEC_FRAMES):
+    for f in range(n_frames):
         noisy = {k: v + 0.001 * f for k, v in pixels.items()}
         before = (fa_kernel.launches_by.get("bfloat16", 0),
                   fa_kernel.launches_by.get("float32", 0),
@@ -4224,11 +4274,145 @@ def _mesh_vla_train(dev, kernels, mesh) -> dict:
     return out
 
 
-def _mesh_serving(dev, kernels, mesh) -> dict:
+def _mesh_equal(what: str, runs: dict) -> dict:
+    """Raise unless the mesh run's ``"same"`` values equal the unwrapped
+    run's; the record to print: those values without the tokens, and each
+    run's ``"ms"``."""
+    got, want = runs["mesh"]["same"], runs["unwrapped"]["same"]
+    if got != want:
+        raise AssertionError(f"multigpu {what}: mesh {got} against "
+                             f"unwrapped {want}")
+    return {"equal": {k: v for k, v in got.items() if k != "tokens"},
+            "tokens_equal": True,
+            "ms": {key: r["ms"] for key, r in runs.items()}}
+
+
+def _mesh_int4_engines(dev, kernels, mesh, cfg, params, tok, transforms,
+                       family, frame, prompt, pixels) -> dict:
+    """The bf16 ``params`` quantized to int4 on the card
+    (``quantize_vlm_params``) and sharded (``shard_params``), through every
+    engine beside the dense one, each against its unwrapped run on the
+    same int4 tree and inputs: (a) the closed loop's first
+    ``MESH_SPEC_FRAMES`` forced frames on ``SpeculativeEngine`` at the
+    speculative phase's settings (``SPEC_KW``, a vision cache of 4 at
+    0.05; ``check_episode``'s gates each), then ``EmmaXVLA(...,
+    speculative=True, mesh=)`` -> ``generate_actions`` over
+    ``MESH_VLA_FRAMES`` closed-loop frames; (b) ``PagedServingEngine``
+    ("kernel", int8 pages) and (c) ``ContinuousServingEngine`` over a few
+    requests. Gates: the same tokens (texts, actions), verifier steps and
+    prefill kinds, and the same launches of every serving kernel per frame
+    or run (the paged kernel 0 in (a), non-zero in (b)). ``frame``,
+    ``prompt`` and ``pixels``: the bf16 request's (one frame, its
+    preprocessed pixels)."""
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops import int4_matmul
+    from emmax_torch.ops.image import preprocess_for_towers
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.serving.continuous import ContinuousServingEngine
+    from emmax_torch.serving.engine import GenerateOptions, VisionCache
+    from emmax_torch.serving.paged import PagedServingEngine
+    from emmax_torch.serving.quant import quantize_vlm_params
+    from emmax_torch.serving.speculative import SpeculativeEngine
+
+    t0 = time.perf_counter()
+    q4 = quantize_vlm_params(params, bits=4)
+    torch.cuda.synchronize()
+    out = {"quantize_s": time.perf_counter() - t0}
+    trees = (("unwrapped", q4, None), ("mesh", shard_params(q4, mesh), mesh))
+
+    # (a) the closed loop: forced frames, then the VLA API
+    inputs = closed_loop_inputs(tok)
+    spec_pixels = preprocess_for_towers(torch.from_numpy(inputs[2]).to(dev),
+                                        transforms)
+    loop, vla_runs = {}, {}
+    for key, tree, m in trees:
+        eng = SpeculativeEngine(cfg, tree, tok,
+                                options=GenerateOptions(eos_id=tok.eos_id),
+                                vision_cache=VisionCache(capacity=4,
+                                                         threshold=0.05),
+                                device=dev, mesh=m, **SPEC_KW)
+        rows, launches, _ = _counted(kernels, lambda: closed_loop_episode(
+            eng, inputs, spec_pixels, fa.KERNEL, int4_matmul.KERNEL,
+            MESH_SPEC_FRAMES))
+        # frame f is frame 0's image + f levels, within the 0.05 threshold
+        check_episode(eng, inputs, rows, {0}, f"multigpu closed loop {key}")
+        loop[key] = {"same": {
+            "steps": [r["steps"] for r in rows],
+            "prefills": [r["prefill"] for r in rows],
+            "tokens": [r["out"].tolist() for r in rows],
+            "per_frame_bf16_fp32_int4": [
+                [r[k] for k in ("flash_bf16", "flash_fp32", "int4")]
+                for r in rows],
+            "launches": launches}, "ms": [r["ms"] for r in rows]}
+        del eng
+        vla = EmmaXVLA(cfg, tree, tok, transforms, llm_family=family,
+                       speculative=True, device=dev, mesh=m)
+        frames, ms = [], []
+        for f in range(MESH_VLA_FRAMES):
+            prompt = vla.get_prompt(TASK, (128 + 4 * f, 96 + 2 * f))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (actions, text), launches, _ = _counted(
+                kernels, lambda: vla.generate_actions(
+                    frame[0], prompt, max_new_tokens=MESH_NEW))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if not all(a.shape == (7,) and np.isfinite(a).all()
+                       for a in actions):
+                raise AssertionError(f"multigpu vla {key}: bad actions "
+                                     f"{actions}")
+            frames.append({"text": text,
+                           "actions": [a.tolist() for a in actions],
+                           "steps": vla.engine.last_steps,
+                           "prefill": vla.engine.last_prefill,
+                           "launches": launches})
+        vla_runs[key] = {"same": {"frames": frames}, "ms": ms}
+        del vla
+    out["closed_loop"] = _mesh_equal("closed loop", loop)
+    out["vla"] = _mesh_equal("vla", vla_runs)
+    frames = out["vla"]["equal"]["frames"]
+    if (out["closed_loop"]["equal"]["launches"]["paged_attention"] != 0
+            or [r["prefill"] for r in frames]
+            != ["full"] + ["tail"] * (MESH_VLA_FRAMES - 1)
+            or any(r["launches"]["int4_matmul"] == 0 for r in frames)):
+        raise AssertionError(f"multigpu closed loop: {out}")
+
+    # (b) the paged engine, (c) the slot-pool engine: one burst each
+    for name, n, make in (
+            ("paged", MESH_PAGED_REQUESTS, lambda t, m: PagedServingEngine(
+                cfg, t, tok, num_slots=MESH_PAGED_REQUESTS,
+                n_pages=6 * MESH_PAGED_REQUESTS, page_size=128,
+                max_pages_per_slot=6, burst=MESH_NEW, paged_attn="kernel",
+                quantized_cache=True, device=dev, mesh=m)),
+            ("slot_pool", MESH_SLOT_REQUESTS,
+             lambda t, m: ContinuousServingEngine(
+                 cfg, t, tok, num_slots=MESH_SLOT_REQUESTS, cache_len=512,
+                 burst=MESH_NEW, device=dev, mesh=m))):
+        runs = {}
+        for key, tree, m in trees:
+            (_, toks, rec), launches, _ = _counted(kernels, lambda: serve(
+                lambda: make(tree, m), lambda eng: [
+                    eng.submit(prompt, pixels, max_new_tokens=MESH_NEW)
+                    for _ in range(n)]))
+            runs[key] = {"same": {"tokens": toks, "launches": launches},
+                         "ms": {"admit": rec["admit_ms"],
+                                "burst": rec["median_burst_ms"]}}
+        out[name] = _mesh_equal(name, runs)
+        want = ("int4_matmul", "flash_fwd") + (
+            ("paged_attention",) if name == "paged" else ())
+        if any(out[name]["equal"]["launches"][k] == 0 for k in want) or any(
+                len(t) != MESH_NEW for t in runs["mesh"]["same"]["tokens"]):
+            raise AssertionError(f"multigpu {name}: {runs['mesh']}")
+    del q4, trees
+    return out
+
+
+def _mesh_serving(dev, kernels, serving_kernels, mesh) -> dict:
     """``ServingEngine(cfg, shard_params(bf16 params, mesh), tok,
     mesh=mesh)``: one 64-token request against the unsharded engine on the
     same params: the same tokens and launches (fp32 flash forward depth -
-    1 per tower, bf16 once per decoder layer)."""
+    1 per tower, bf16 once per decoder layer). Then the same params in
+    int4 through the other engines (``_mesh_int4_engines``)."""
     from emmax_torch.models.load import load
     from emmax_torch.models.vla import EmmaXVLA
     from emmax_torch.ops.image import preprocess_for_towers
@@ -4263,18 +4447,24 @@ def _mesh_serving(dev, kernels, mesh) -> dict:
             or out["mesh"]["flash_fwd_by_dtype"] != want):
         raise AssertionError(f"multigpu serving: {out} (flash forwards "
                              f"by dtype wanted {want})")
+    t0 = time.perf_counter()
+    out["int4"] = _mesh_int4_engines(dev, serving_kernels, mesh, cfg, params,
+                                     tok, transforms, family, frame, prompt,
+                                     pixels)
+    out["int4"]["phase_s"] = time.perf_counter() - t0
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def multigpu_phase(dev, kernels) -> dict:
+def multigpu_phase(dev, kernels, serving_kernels) -> dict:
     """The multi-GPU path at world size 1: a NCCL process group joined
     in-process (``initialize_distributed``), the (1, 1, 1) mesh on
     "cuda", and the full-width align7b step, vla-train's cut trainer
-    with a checkpoint, and a served request through it, each against the
-    unwrapped path."""
+    with a checkpoint, a served request through it, and the int4 tree
+    through the speculative, paged and slot-pool engines and
+    ``EmmaXVLA``, each against the unwrapped path."""
     import socket
 
     import torch.distributed as dist
@@ -4298,7 +4488,7 @@ def multigpu_phase(dev, kernels) -> dict:
         log("multigpu align7b " + json.dumps(out["align7b"]))
         out["vla_train"] = _mesh_vla_train(dev, kernels, mesh)
         log("multigpu vla-train " + json.dumps(out["vla_train"]))
-        out["serving"] = _mesh_serving(dev, kernels, mesh)
+        out["serving"] = _mesh_serving(dev, kernels, serving_kernels, mesh)
     finally:
         dist.destroy_process_group()
     out["phase_s"] = time.perf_counter() - t0
@@ -4606,7 +4796,7 @@ def zoo_kernel_checks(dev) -> dict:
                             f"rpad{ALIGN_PAD}", ALIGN_B, F, llm.n_heads,
                             llm.head_dim, True, ALIGN_PAD, torch.bfloat16)
     int4 = [check_int4(dev, gen, f"{n} M{M} D{d} F{f}", M, d, f,
-                       layers=zoo_int4_layers(d, f))
+                       layers=zoo_int4_layers(d, f), time_fp32=False)
             for n, d, f, Lq_n in zoo_int4_weights(bucket)
             for M in (1, Lq_n)]
     return {"flash_fwd": flash, "train": train, "int4": int4}
@@ -4803,7 +4993,7 @@ def main(argv) -> int:
     log("eval summary " + json.dumps({k: ev[k] for k in (
         "tiny_s", "phase_s", "launches_eval")}))
     log_phase("multigpu_phase")
-    multi = multigpu_phase(dev, kernels)
+    multi = multigpu_phase(dev, kernels, serving_kernels)
     log("multigpu " + json.dumps(multi))
     log_phase("zoo_phase")
     zoo = zoo_phase(dev, kernels)

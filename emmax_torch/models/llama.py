@@ -51,6 +51,7 @@ from emmax_torch.ops.rope import apply_rope, rope_cos_sin
 from emmax_torch.parallel.constraints import constrain_batch_sharded
 from emmax_torch.parallel.gather import (gather, gather_tree, global_mean,
                                          layer_blocks)
+from emmax_torch.parallel.sharding import sliced
 
 Params = Dict[str, Any]
 IGNORE_INDEX = -100
@@ -170,9 +171,12 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def layer_slice(layers: Params, i: int) -> Params:
+def layer_slice(layers: Params, i: int, mesh=None) -> Params:
     """Layer ``i`` of the stacked layer params, as views. Int4 weights stay
-    stacked with the index attached, for the kernel to read in place."""
+    stacked with the index attached, for the kernel to read in place.
+    Under a ``mesh`` each dense block is gathered to the layer's full
+    weight (the slice keeps the stacked leaf's spec); quantized leaves are
+    replicated and read as they are."""
     out = {}
     for key, val in layers.items():
         if isinstance(val, dict) and "q4" in val:
@@ -180,8 +184,8 @@ def layer_slice(layers: Params, i: int) -> Params:
         elif isinstance(val, dict):
             out[key] = {k: v[i] for k, v in val.items()}
         else:
-            out[key] = val[i]
-    return out
+            out[key] = sliced(val, i)
+    return gather_tree(out, mesh)
 
 
 def layer_list(layers: Params, n_layers: int, mesh=None) -> List[Params]:

@@ -17,6 +17,11 @@ With ``speculative`` and ``closed_loop`` each frame keys a
 ``VisionCache`` on its host uint8 image, drafts from the previous frame's
 output and refreshes only the prompt tail of the previous frame's KV
 cache where the patches are reused (``serving/speculative.py``).
+
+``mesh``: ``params`` are this rank's blocks
+(``EmmaXVLA(cfg, parallel.shard_params(params, mesh), ..., mesh=mesh)``);
+the engine gathers each weight where it is used and every rank returns
+the single-device policy's text and actions.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ class EmmaXVLA:
         prefix_tail: int = 24,
         vision_cache_threshold: float = 0.0,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -90,11 +96,11 @@ class EmmaXVLA:
                 vision_cache=(VisionCache(capacity=4,
                                           threshold=vision_cache_threshold)
                               if closed_loop else None),
-                device=self.device)
+                device=self.device, mesh=mesh)
         else:
             self.engine = ServingEngine(cfg, params, tokenizer,
                                         options=options, attn_impl=attn_impl,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
         self._closed_loop = speculative and closed_loop
         self._last_output_ids = None
         self.action_tokenizer = ActionTokenizer(tokenizer)

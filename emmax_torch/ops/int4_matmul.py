@@ -24,7 +24,8 @@ model) runs on the tensor cores: each nibble becomes its exact bf16
 level ``q + 0.5``, each group's products are summed in fp32 per nibble
 plane and scaled per column, as JAX's kernel does; the plain version
 rounds the dequantized weight to bf16 first. fp32 x runs the scalar
-kernel, with fp32 FMAs.
+kernel, with fp32 FMAs. Each launch also counts under x's dtype
+(``KERNEL.launches_by``).
 """
 
 from __future__ import annotations
@@ -268,7 +269,8 @@ def int4_matmul_cuda(x2d: torch.Tensor, q4: torch.Tensor,
                   part.data_ptr() if part is not None else None,
                   out.data_ptr(), M, D, F, group, gps, mt,
                   torch_dtype_code(x2d.dtype),
-                  current_stream_ptr(x2d.device))
+                  current_stream_ptr(x2d.device),
+                  variant=str(x2d.dtype).removeprefix("torch."))
     return out
 
 

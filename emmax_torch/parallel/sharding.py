@@ -148,6 +148,18 @@ def with_spec(t: torch.Tensor, spec: Optional[Spec]) -> torch.Tensor:
     return t
 
 
+def sliced(t: torch.Tensor, index) -> torch.Tensor:
+    """``t[index]`` of a stacked ``[L, ...]`` leaf with its spec kept (the
+    layer axis dropped from it for an int ``index``). The rules never split
+    the layer axis, so a placed leaf's slice is this rank's block of the
+    sliced leaf."""
+    spec = spec_of(t)
+    out = t[index]
+    if spec is not None:
+        with_spec(out, spec[1:] if isinstance(index, int) else spec)
+    return out
+
+
 def is_sharded(spec: Optional[Spec]) -> bool:
     return spec is not None and any(e is not None for e in spec)
 

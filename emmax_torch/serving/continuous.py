@@ -15,6 +15,10 @@ Mechanics:
   then copied into the pool's slots in place (``_insert_slots``);
 - decode runs in bursts of ``burst`` tokens between scheduling points; the
   host reads the emitted tokens and the active flags once per burst.
+
+``mesh``: the params are this rank's blocks (``parallel.shard_params``),
+gathered where they are used, as in ``ServingEngine``; the slot pool is
+whole on every rank, and every rank runs the same schedule.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 
 from emmax_torch.models.llama import embed_tokens, init_kv_cache
 from emmax_torch.models.vlm import VLMConfig, fuse_multimodal, llm_apply
-from emmax_torch.serving.engine import resolve_device, resolve_patches
+from emmax_torch.serving.engine import (check_mesh, resolve_device,
+                                        resolve_patches)
 
 _CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
 
@@ -36,7 +41,7 @@ _CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
 def _prefill_batch(params, cfg: VLMConfig, input_ids: torch.Tensor,
                    mask: torch.Tensor, pixel_values: Dict, *,
                    cache_len: int, attn_impl: str,
-                   quantized_cache: bool = False):
+                   quantized_cache: bool = False, mesh=None):
     """G-request multimodal prefill (equal prompt lengths, all-ones masks)
     -> (first tokens [G], cache tensors, slot masks [G, S], used lengths
     [G]). Grouping the queue's equal-length head shares the towers' and
@@ -45,12 +50,13 @@ def _prefill_batch(params, cfg: VLMConfig, input_ids: torch.Tensor,
     cache = init_kv_cache(cfg.llm, G, cache_len,
                           dtype=params["llm"]["embed"].dtype,
                           device=input_ids.device, quantized=quantized_cache)
-    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl)
+    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
+                                   mesh)
     embeds, fmask, _, positions = fuse_multimodal(
-        patch_embeds, embed_tokens(params["llm"], input_ids), mask)
+        patch_embeds, embed_tokens(params["llm"], input_ids, mesh), mask)
     logits, cache = llm_apply(params["llm"], cfg.llm, embeds, mask=fmask,
                               positions=positions, kv_cache=cache,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, mesh=mesh)
     first = torch.argmax(logits[:, -1].float(), dim=-1)
     tensors = {key: cache[key] for key in _CACHE_KEYS if key in cache}
     return first, tensors, cache["mask"], positions[:, -1] + 1
@@ -71,7 +77,7 @@ def _insert_slots(pool: Dict, slots: torch.Tensor, tensors: Dict,
 
 
 def _decode_burst(params, pool: Dict, *, cfg: VLMConfig, burst: int,
-                  eos_id: int, attn_impl: str) -> torch.Tensor:
+                  eos_id: int, attn_impl: str, mesh=None) -> torch.Tensor:
     """Decode ``burst`` tokens for every slot, updating ``pool`` in place.
     Returns packed [B, burst + 1] int32 on the device: the emitted tokens
     (EOS for inactive or finished rows) and the post-burst active flag in
@@ -86,9 +92,9 @@ def _decode_burst(params, pool: Dict, *, cfg: VLMConfig, burst: int,
         cache["mask"] = pool["mask"]
         cache["len"] = torch.clamp(cursors, max=S - 1)
         lg, cache = llm_apply(llm, cfg.llm,
-                              embed_tokens(llm, cur[:, None]),
+                              embed_tokens(llm, cur[:, None], mesh),
                               positions=cursors[:, None], kv_cache=cache,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, mesh=mesh)
         nxt = torch.argmax(lg[:, 0].float(), dim=-1).to(cur.dtype)
         emitted.append(torch.where(active, cur, eos_id))
         remaining = torch.where(active, pool["remaining"] - 1,
@@ -120,20 +126,23 @@ class ContinuousServingEngine:
 
     ``params`` must lie on ``device``; pixel values (or ``{"patches"}``)
     passed to ``submit`` too. ``quantized_cache`` stores the pool as int8
-    rows with fp32 scales (``init_kv_cache(quantized=True)``).
+    rows with fp32 scales (``init_kv_cache(quantized=True)``). ``mesh``:
+    ``params`` are this rank's blocks (module docstring).
     """
 
     def __init__(self, cfg: VLMConfig, params, tokenizer, *,
                  num_slots: int = 8, cache_len: int = 1024, burst: int = 16,
                  attn_impl: str = "auto", quantized_cache: bool = False,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         self.device = resolve_device(device)
+        check_mesh(mesh, self.device)
         embed = params["llm"]["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"weights are on {embed.device}, the engine on "
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.tokenizer = tokenizer
         self.num_slots = num_slots
         self.cache_len = cache_len
@@ -202,7 +211,7 @@ class ContinuousServingEngine:
             firsts, tensors, masks, used = _prefill_batch(
                 self.params, self.cfg, ids, torch.ones_like(ids, dtype=bool),
                 pixels, cache_len=self.cache_len, attn_impl=self.attn_impl,
-                quantized_cache=self.quantized_cache)
+                quantized_cache=self.quantized_cache, mesh=self.mesh)
             _insert_slots(
                 self.pool, torch.tensor(slots, device=self.device), tensors,
                 masks, used, firsts,
@@ -222,7 +231,7 @@ class ContinuousServingEngine:
         packed = _decode_burst(self.params, self.pool, cfg=self.cfg,
                                burst=self.burst,
                                eos_id=self.tokenizer.eos_id,
-                               attn_impl=self.attn_impl)
+                               attn_impl=self.attn_impl, mesh=self.mesh)
         packed = packed.cpu().numpy()          # one fetch per burst
         emitted, active = packed[:, :-1], packed[:, -1].astype(bool)
         done_now = []

@@ -20,7 +20,10 @@ the loop stops after ``max_new`` steps or when every row is done.
 serves from each rank's blocks: every rank runs the same host loop on the
 same request, gathering each weight where it is used, and produces the
 tokens of the single-device engine (a quantized tree's ``q4`` / ``q8`` /
-``scale`` leaves are replicated, so it computes as on one device).
+``scale`` leaves are replicated, so it computes as on one device). The
+KV cache is whole on every rank. The speculative, slot-pool and paged
+engines take ``mesh`` the same way; a mesh on another device type than
+the engine's raises (``check_mesh``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,14 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return device
+
+
+def check_mesh(mesh, device: torch.device) -> None:
+    """Raise where ``mesh`` lies on another device type than the engine:
+    its collectives would run there, not on ``device``."""
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type!r}, the engine "
+                         f"on {device}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +227,7 @@ class ServingEngine:
                  vision_cache: Optional[VisionCache] = None,
                  device="cuda", mesh=None) -> None:
         self.device = resolve_device(device)
+        check_mesh(mesh, self.device)
         self.mesh = mesh
         self.cfg = cfg
         self.model = VLM(cfg, params)

@@ -39,6 +39,11 @@ Decode modes (``paged_attn``):
 
 Any other name raises.
 
+``mesh``: the params are this rank's blocks (``parallel.shard_params``);
+each layer's weights, the embedding and the lm_head are gathered where
+they are read, as in ``ServingEngine``. The page pool is whole on every
+rank, and every rank runs the same schedule.
+
 The pool is updated in place. Where JAX drops an out-of-bounds scatter
 (an admission with no slot, ``submit_shared``'s prefix prefill) the port
 skips the write explicitly, and every page id the JAX code clips or routes
@@ -63,7 +68,9 @@ from emmax_torch.ops.attention import multi_head_attention
 from emmax_torch.ops.norms import rms_norm
 from emmax_torch.ops.paged_attention import paged_attention
 from emmax_torch.ops.rope import apply_rope, rope_cos_sin
-from emmax_torch.serving.engine import resolve_device, resolve_patches
+from emmax_torch.parallel.gather import gather
+from emmax_torch.serving.engine import (check_mesh, resolve_device,
+                                        resolve_patches)
 
 _MAX_INT8 = 127.5   # the paged-attention kernel's quantization convention
 PAGED_ATTN_MODES = ("burstdense", "kernel", "gather", "gather2", "pagescan",
@@ -245,10 +252,10 @@ def init_paged_pool(cfg: VLMConfig, *, n_pages: int, page_size: int,
     return pool
 
 
-def _finish(h, llm_params, llm_cfg):
+def _finish(h, llm_params, llm_cfg, mesh=None):
     """Final norm, fp32 logits [B, V] of the last position, greedy ids."""
     h = rms_norm(h[:, -1:], llm_params["final_norm"], llm_cfg.norm_eps)
-    logits = mm(h, llm_params["lm_head"]).float()[:, 0]
+    logits = mm(h, gather(llm_params["lm_head"], mesh)).float()[:, 0]
     return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -256,7 +263,7 @@ def _finish(h, llm_params, llm_cfg):
 def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                      n_pages: int, paged_attn: str = "gather",
                      page_owner: Optional[torch.Tensor] = None,
-                     page_pos: Optional[torch.Tensor] = None):
+                     page_pos: Optional[torch.Tensor] = None, mesh=None):
     """One greedy token for every slot, K/V in pages. Writes each row's new
     K/V into its page in place (inactive rows into the trash page) and
     returns (pool, next ids [B] int32, fp32 logits [B, V]); the per-slot
@@ -279,9 +286,9 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                             n_pages)                          # trash id
     lengths = t + 1                                           # incl. this
     quantized = "k_scale" in pool
-    h = embed_tokens(llm_params, pool["cur"][:, None])        # [B, 1, D]
+    h = embed_tokens(llm_params, pool["cur"][:, None], mesh)  # [B, 1, D]
     for i in range(llm_cfg.n_layers):
-        p = layer_slice(llm_params["layers"], i)
+        p = layer_slice(llm_params["layers"], i, mesh)
         x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
         k_new = apply_rope(mm(x, p["wk"]).reshape(B, 1, kv, hd), cos, sin)
         v_new = mm(x, p["wv"]).reshape(B, 1, kv, hd)
@@ -338,7 +345,7 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
         else:
             raise ValueError(f"unknown per-step paged_attn {paged_attn!r}")
         h = _attn_mlp_tail(h, attn.reshape(B, 1, -1), p, llm_cfg.norm_eps)
-    logits, nxt = _finish(h, llm_params, llm_cfg)
+    logits, nxt = _finish(h, llm_params, llm_cfg, mesh)
     return pool, nxt, logits
 
 
@@ -346,7 +353,8 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
 @torch.no_grad()
 def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
                              page_size: int, n_pages: int, burst: int,
-                             eos_id: int, uniform_write: bool = False):
+                             eos_id: int, uniform_write: bool = False,
+                             mesh=None):
     """Burst decode against a contiguous per-slot scratch cache.
 
     Each slot's pages are gathered into a dense ``[KV, L, B, S, hd]``
@@ -397,9 +405,9 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
         slot = (torch.clamp(len0[0] + it, max=S - 1).long()
                 if uniform_write else t_w)
         lengths = t + 1
-        h = embed_tokens(llm_params, cur[:, None])      # [B, 1, D]
+        h = embed_tokens(llm_params, cur[:, None], mesh)    # [B, 1, D]
         for i in range(L):
-            p = layer_slice(llm_params["layers"], i)
+            p = layer_slice(llm_params["layers"], i, mesh)
             x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
             k_new = apply_rope(mm(x, p["wk"]).reshape(B, 1, kv, hd), cos,
                                sin)
@@ -431,7 +439,7 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
             attn = torch.einsum("bkgs,kbsd->bkgd", w.to(opd), v_l.to(opd))
             h = _attn_mlp_tail(h, attn.reshape(B, 1, -1).to(h.dtype), p,
                                llm_cfg.norm_eps)
-        _, nxt = _finish(h, llm_params, llm_cfg)
+        _, nxt = _finish(h, llm_params, llm_cfg, mesh)
         emitted.append(torch.where(active, cur, eos_id))
         remaining = torch.where(active, remaining - 1, remaining)
         nxt_active = active & (cur != eos_id) & (remaining > 0)
@@ -474,7 +482,7 @@ def _paged_decode_burst(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                         paged_attn: str = "gather",
                         page_owner: Optional[torch.Tensor] = None,
                         page_pos: Optional[torch.Tensor] = None,
-                        uniform_write: bool = False):
+                        uniform_write: bool = False, mesh=None):
     """``burst`` greedy tokens for every active slot. The caller must have
     allocated pages covering ``len + burst`` for every active slot.
     Returns (pool, packed [B, burst + 3] int32): the emitted tokens (EOS
@@ -487,7 +495,8 @@ def _paged_decode_burst(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                                         page_size=page_size,
                                         n_pages=n_pages, burst=burst,
                                         eos_id=eos_id,
-                                        uniform_write=uniform_write)
+                                        uniform_write=uniform_write,
+                                        mesh=mesh)
     emitted = []
     for _ in range(burst):
         active, cur = pool["active"], pool["cur"]
@@ -496,7 +505,7 @@ def _paged_decode_burst(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                                          n_pages=n_pages,
                                          paged_attn=paged_attn,
                                          page_owner=page_owner,
-                                         page_pos=page_pos)
+                                         page_pos=page_pos, mesh=mesh)
         emitted.append(torch.where(active, cur, eos_id))
         remaining = torch.where(active, pool["remaining"] - 1,
                                 pool["remaining"])
@@ -549,7 +558,7 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
                        page_ids: torch.Tensor, slots: Sequence[int],
                        max_new: Sequence[int], *, page_size: int,
                        n_pages: int, attn_impl: str = "auto",
-                       contiguous: bool = False) -> Dict:
+                       contiguous: bool = False, mesh=None) -> Dict:
     """Multimodal prefill of G equal-length prompts written directly into
     each slot's pages (``page_ids`` [G, n0] local ids, a host tensor).
 
@@ -563,11 +572,12 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
     G, n0 = page_ids.shape
     quantized = "k_scale" in pool
     llm = params["llm"]
-    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl)
+    patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
+                                   mesh)
     mask = torch.ones(input_ids.shape, dtype=torch.bool,
                       device=input_ids.device)
     embeds, fmask, _, positions = fuse_multimodal(
-        patch_embeds, embed_tokens(llm, input_ids), mask)
+        patch_embeds, embed_tokens(llm, input_ids, mesh), mask)
     B, S, _ = embeds.shape
     cos, sin = rope_cos_sin(positions, llm_cfg.head_dim, llm_cfg.rope_theta)
     kv, hd = llm_cfg.n_kv_heads, llm_cfg.head_dim
@@ -581,7 +591,7 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
 
     h = embeds
     for i in range(llm_cfg.n_layers):
-        p = layer_slice(llm["layers"], i)
+        p = layer_slice(llm["layers"], i, mesh)
         x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
         q = apply_rope(mm(x, p["wq"]).reshape(B, S, llm_cfg.n_heads, hd),
                        cos, sin)
@@ -600,7 +610,7 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
         attn = multi_head_attention(q, k, v, kv_mask=fmask, causal=True,
                                     impl=attn_impl)
         h = _attn_mlp_tail(h, attn.reshape(B, S, -1), p, llm_cfg.norm_eps)
-    _, first = _finish(h, llm, llm_cfg)
+    _, first = _finish(h, llm, llm_cfg, mesh)
     table_rows = torch.full((G, pool["page_table"].shape[1]), -1,
                             dtype=torch.int32)
     table_rows[:, :n0] = page_ids
@@ -623,7 +633,7 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
                             max_new: Sequence[int],
                             table_rows: torch.Tensor, *, prefix_len: int,
                             page_size: int, n_pages: int,
-                            contiguous: bool = False) -> Dict:
+                            contiguous: bool = False, mesh=None) -> Dict:
     """Admit a group of requests whose first ``prefix_len`` fused positions
     (BOS + patch block) already live in the same shared pages
     (``prefix_table``, local ids): only the equal-length prompt tails
@@ -643,7 +653,7 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
     p0 = prefix_len // page_size                       # full shared pages
     own_start = p0 * page_size
     pad = own_start + n_own * page_size - (prefix_len + T)
-    h = embed_tokens(llm_params, tail_ids)             # [G, T, D]
+    h = embed_tokens(llm_params, tail_ids, mesh)       # [G, T, D]
     positions = prefix_len + torch.arange(T, dtype=torch.int32,
                                           device=dev)[None]
     cos, sin = rope_cos_sin(positions, hd, llm_cfg.rope_theta)  # [1, T, hd]
@@ -670,7 +680,7 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
         _write_pages(pages, rows, i * stride, own_flat, contiguous)
 
     for i in range(llm_cfg.n_layers):
-        p = layer_slice(llm_params["layers"], i)
+        p = layer_slice(llm_params["layers"], i, mesh)
         x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
         q = apply_rope(mm(x, p["wq"]).reshape(G, T, llm_cfg.n_heads, hd),
                        cos, sin)
@@ -702,7 +712,7 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
         else:
             write_own(pool["k"], full_k, i)
             write_own(pool["v"], full_v, i)
-    _, first = _finish(h, llm_params, llm_cfg)
+    _, first = _finish(h, llm_params, llm_cfg, mesh)
     _set_slots(pool, slots, table_rows.to(pool["len"].device),
                prefix_len + T, first, max_new)
     return pool
@@ -734,7 +744,8 @@ class PagedServingEngine:
     "poolmask" (per-step plain variants, see the module docstring) or
     "auto" (= "burstdense", the JAX package's default).
     ``params`` must lie on ``device``, and so must the pixel values (or
-    ``{"patches"}``) passed to ``submit``.
+    ``{"patches"}``) passed to ``submit``. ``mesh``: ``params`` are this
+    rank's blocks (module docstring).
     """
 
     def __init__(self, cfg: VLMConfig, params, tokenizer, *,
@@ -742,8 +753,10 @@ class PagedServingEngine:
                  max_pages_per_slot: int = 16, attn_impl: str = "auto",
                  burst: int = 8, paged_attn: str = "auto",
                  quantized_cache: bool = False,
-                 uniform_burst_writes: bool = True, device="cuda") -> None:
+                 uniform_burst_writes: bool = True, device="cuda",
+                 mesh=None) -> None:
         self.device = resolve_device(device)
+        check_mesh(mesh, self.device)
         if not isinstance(cfg.llm, LlamaConfig):
             raise TypeError(f"the paged engine runs the Llama family only, "
                             f"as in the JAX package; got {type(cfg.llm)}")
@@ -758,6 +771,7 @@ class PagedServingEngine:
                              f"one of {PAGED_ATTN_MODES} or 'auto'")
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.tokenizer = tokenizer
         self.num_slots = num_slots
         self.page_size = page_size
@@ -848,7 +862,7 @@ class PagedServingEngine:
             torch.from_numpy(enc[0][:, :1]).to(self.device), pixel_values,
             torch.tensor([shared], dtype=torch.int32), [self.num_slots], [0],
             page_size=ps, n_pages=self.n_pages, attn_impl=self.attn_impl,
-            contiguous=contig)
+            contiguous=contig, mesh=self.mesh)
         key = next(self._shared_keys)
         self._shared_refs[key] = {"ids": shared, "count": len(prompts)}
         rids = []
@@ -893,7 +907,8 @@ class PagedServingEngine:
             torch.tensor(shared, dtype=torch.int32), torch.from_numpy(own),
             slots, [r.max_new_tokens for r in reqs],
             torch.from_numpy(table_rows), prefix_len=prefix_len,
-            page_size=ps, n_pages=self.n_pages, contiguous=contig)
+            page_size=ps, n_pages=self.n_pages, contiguous=contig,
+            mesh=self.mesh)
         for g, (req, slot) in enumerate(zip(reqs, slots)):
             req.slot = slot
             req.n_pages = p0 + n_own
@@ -970,7 +985,7 @@ class PagedServingEngine:
                 torch.from_numpy(page_ids), slots,
                 [r.max_new_tokens for r in group], page_size=self.page_size,
                 n_pages=self.n_pages, attn_impl=self.attn_impl,
-                contiguous=contig)
+                contiguous=contig, mesh=self.mesh)
             fused = lead_len + self.cfg.num_patches
             for g, (req, slot) in enumerate(zip(group, slots)):
                 req.slot = slot
@@ -1055,7 +1070,7 @@ class PagedServingEngine:
             self.params["llm"], self.cfg.llm, self.pool,
             page_size=self.page_size, n_pages=self.n_pages, burst=self.burst,
             eos_id=self.tokenizer.eos_id, paged_attn=self.paged_attn,
-            uniform_write=uniform, **self._ownership())
+            uniform_write=uniform, mesh=self.mesh, **self._ownership())
         packed = packed.cpu().numpy()          # one fetch per burst
         emitted = packed[:, :self.burst]
         active_after = packed[:, self.burst].astype(bool)

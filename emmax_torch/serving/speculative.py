@@ -39,6 +39,11 @@ with its own slot mask and writes K/V only at slots >= F (the fused
 prompt length), which that mask hides: the caller's dict, kept as the
 prefix of the next frame's tail refresh, keeps JAX's mask and cursor, and
 the tail's queries (causal, below F) never see the decoded rows.
+
+``mesh``: the params are this rank's blocks (``parallel.shard_params``),
+gathered where each forward reads them, as in ``ServingEngine``; the
+cache is whole on every rank, and every rank runs the same host loop on
+the same request, so every rank drafts, accepts and emits alike.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from torch.profiler import record_function
 from emmax_torch.models.llama import embed_tokens, init_kv_cache
 from emmax_torch.models.tree import leaves_with_path
 from emmax_torch.models.vlm import VLMConfig, fuse_multimodal, llm_apply
+from emmax_torch.parallel.sharding import sliced
 from emmax_torch.serving.engine import (ServingEngine, _round_up,
                                         encode_frame, pick_bucket,
                                         resolve_patches)
@@ -236,11 +242,12 @@ def _compact_tree_cache(cache: Dict, abs_src: torch.Tensor,
 
 
 def _truncated_llm(params_llm, llm_cfg, d: int):
-    """The first ``d`` decoder layers (views of the stacked weights) with
-    the shared embed, final norm and lm_head, and their config."""
+    """The first ``d`` decoder layers (views of the stacked weights, each
+    keeping its spec for the gather at use) with the shared embed, final
+    norm and lm_head, and their config."""
     def head(v):
         return ({k: head(x) for k, x in v.items()} if isinstance(v, dict)
-                else v[:d])
+                else sliced(v, slice(0, d)))
 
     return (dict(params_llm, layers=head(params_llm["layers"])),
             dataclasses.replace(llm_cfg, n_layers=d))
@@ -248,7 +255,7 @@ def _truncated_llm(params_llm, llm_cfg, d: int):
 
 def _model_draft(dparams, dcfg, tok: np.ndarray, cache: Dict,
                  cur_pos: np.ndarray, *, k: int,
-                 attn_impl: str) -> np.ndarray:
+                 attn_impl: str, mesh=None) -> np.ndarray:
     """LayerSkip self-drafts: the greedy ``k``-token continuation of
     ``tok`` by the first ``dcfg.n_layers`` decoder layers and the shared
     head (no extra weights). The draft reads the verifier cache's first
@@ -264,9 +271,10 @@ def _model_draft(dparams, dcfg, tok: np.ndarray, cache: Dict,
     pos = torch.from_numpy(cur_pos).to(dev)
     drafts = []
     for j in range(k):
-        lg, dcache = llm_apply(dparams, dcfg, embed_tokens(dparams, cur[:, None]),
+        lg, dcache = llm_apply(dparams, dcfg,
+                               embed_tokens(dparams, cur[:, None], mesh),
                                positions=(pos + j)[:, None], kv_cache=dcache,
-                               attn_impl=attn_impl)
+                               attn_impl=attn_impl, mesh=mesh)
         cur = lg[:, 0].float().argmax(dim=-1)
         drafts.append(cur)
     return torch.stack(drafts, dim=1).cpu().numpy()
@@ -278,7 +286,7 @@ def _model_draft(dparams, dcfg, tok: np.ndarray, cache: Dict,
 def _spec_prefill_impl(params, cfg: VLMConfig, input_ids: torch.Tensor,
                        mask: torch.Tensor, pixel_values: Dict, *,
                        cache_len: int, attn_impl: str = "auto",
-                       quantized_cache: bool = False):
+                       quantized_cache: bool = False, mesh=None):
     """Fused multimodal prefill -> (cache [scalar len], first argmax [B],
     next rope position per row [B] (both numpy), patch embeds)."""
     llm = params["llm"]
@@ -286,13 +294,14 @@ def _spec_prefill_impl(params, cfg: VLMConfig, input_ids: torch.Tensor,
                           dtype=llm["embed"].dtype, device=input_ids.device,
                           quantized=quantized_cache)
     with record_function("emmax_torch.encode"):
-        patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl)
+        patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
+                                       mesh)
     with record_function("emmax_torch.prefill"):
         embeds, fmask, _, positions = fuse_multimodal(
-            patch_embeds, embed_tokens(llm, input_ids), mask)
+            patch_embeds, embed_tokens(llm, input_ids, mesh), mask)
         logits, cache = llm_apply(llm, cfg.llm, embeds, mask=fmask,
                                   positions=positions, kv_cache=cache,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, mesh=mesh)
         first = logits[:, -1].float().argmax(dim=-1)
     cur_pos = positions[:, -1] + 1
     return cache, first.cpu().numpy(), cur_pos.cpu().numpy(), patch_embeds
@@ -301,7 +310,7 @@ def _spec_prefill_impl(params, cfg: VLMConfig, input_ids: torch.Tensor,
 @torch.inference_mode()
 def _spec_tail_impl(params, cfg: VLMConfig, tail_ids: torch.Tensor,
                     cache: Dict, cur_pos: np.ndarray, *, t_tail: int,
-                    attn_impl: str = "auto"):
+                    attn_impl: str = "auto", mesh=None):
     """Rewrite the last ``t_tail`` fused slots of a previous frame's
     post-prefill cache (prompt prefix and patches the same, the tail
     tokens, e.g. the gripper coordinates, changed), in place. Returns
@@ -313,9 +322,10 @@ def _spec_tail_impl(params, cfg: VLMConfig, tail_ids: torch.Tensor,
                 + torch.arange(t_tail, device=dev)[None, :])
     cache["len"] = F - t_tail
     with record_function("emmax_torch.prefill"):
-        logits, cache = llm_apply(llm, cfg.llm, embed_tokens(llm, tail_ids),
+        logits, cache = llm_apply(llm, cfg.llm,
+                                  embed_tokens(llm, tail_ids, mesh),
                                   positions=tail_pos, kv_cache=cache,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, mesh=mesh)
         first = logits[:, -1].float().argmax(dim=-1)
     return cache, first.cpu().numpy()
 
@@ -338,8 +348,8 @@ def _spec_decode_impl(params, cfg: VLMConfig, input_ids: np.ndarray,
                       draft_ctx: Optional[np.ndarray], *, max_new: int,
                       eos_id: int, attn_impl: str = "auto", k: int = 8,
                       draft_layers: int = 0, action_bins=None,
-                      action_period: int = 7,
-                      action_tree=None) -> Tuple[np.ndarray, int]:
+                      action_period: int = 7, action_tree=None,
+                      mesh=None) -> Tuple[np.ndarray, int]:
     """The draft/verify loop -> (tokens [B, max_new], verifier steps).
 
     ``input_ids`` / ``mask`` [B, L]: the left-padded prompt (host).
@@ -369,6 +379,9 @@ def _spec_decode_impl(params, cfg: VLMConfig, input_ids: np.ndarray,
     ``draft_ctx`` ([B, C], -1 padded): tokens seeded into the lookup
     history before the prompt (the previous closed-loop frame's output);
     never attended, never emitted.
+
+    ``mesh``: every forward (the verifier's and the draft's) gathers the
+    weights it reads (module docstring).
     """
     B, L = input_ids.shape
     llm = params["llm"]
@@ -466,7 +479,7 @@ def _spec_decode_impl(params, cfg: VLMConfig, input_ids: np.ndarray,
             hit = draft[:, 0] >= 0
             if not hit.all():
                 md = _model_draft(dparams, dcfg, tok, cache, cur_pos, k=kd,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, mesh=mesh)
                 draft = np.where(hit[:, None], draft, md)
         return draft
 
@@ -510,9 +523,9 @@ def _spec_decode_impl(params, cfg: VLMConfig, input_ids: np.ndarray,
             lg, _ = llm_apply(
                 llm, cfg.llm,
                 embed_tokens(llm, torch.from_numpy(np.maximum(chunk, 0))
-                             .to(dev)),
+                             .to(dev), mesh),
                 positions=torch.from_numpy(pos).to(dev), kv_cache=cache,
-                attn_impl=attn_impl, chunk_attn_mask=cmask)
+                attn_impl=attn_impl, chunk_attn_mask=cmask, mesh=mesh)
             if forced is None:
                 targets = lg.float().argmax(dim=-1).cpu().numpy()
             else:
@@ -577,7 +590,7 @@ def _spec_run_full(params, cfg: VLMConfig, input_ids: np.ndarray,
         params, cfg, torch.from_numpy(input_ids).to(dev),
         torch.from_numpy(mask).to(dev), pixel_values, cache_len=cache_len,
         attn_impl=decode_kw.get("attn_impl", "auto"),
-        quantized_cache=quantized_cache)
+        quantized_cache=quantized_cache, mesh=decode_kw.get("mesh"))
     out, steps = _spec_decode_impl(params, cfg, input_ids, mask, cache,
                                    first, cur_pos, forced, draft_ctx,
                                    **decode_kw)
@@ -593,7 +606,8 @@ def _spec_run_tail(params, cfg: VLMConfig, input_ids: np.ndarray,
     cache, first = _spec_tail_impl(
         params, cfg, torch.from_numpy(input_ids[:, -t_tail:]).to(dev),
         prev_cache, prev_cur_pos, t_tail=t_tail,
-        attn_impl=decode_kw.get("attn_impl", "auto"))
+        attn_impl=decode_kw.get("attn_impl", "auto"),
+        mesh=decode_kw.get("mesh"))
     out, steps = _spec_decode_impl(params, cfg, input_ids, mask, cache,
                                    first, prev_cur_pos, forced, draft_ctx,
                                    **decode_kw)
@@ -604,14 +618,15 @@ def _generate_speculative(params, cfg, input_ids, mask, pixel_values,
                           forced, draft_ctx=None, *, max_new, cache_len,
                           eos_id, attn_impl="auto", k=8,
                           quantized_cache=False, draft_layers=0,
-                          action_bins=None, action_period: int = 7):
+                          action_bins=None, action_period: int = 7,
+                          mesh=None):
     """Prefill and decode in one call -> (tokens, steps, None)."""
     out, steps, _, _, _ = _spec_run_full(
         params, cfg, input_ids, mask, pixel_values, forced, draft_ctx,
         cache_len=cache_len, quantized_cache=quantized_cache,
         max_new=max_new, eos_id=eos_id, attn_impl=attn_impl, k=k,
         draft_layers=draft_layers, action_bins=action_bins,
-        action_period=action_period)
+        action_period=action_period, mesh=mesh)
     return out, steps, None
 
 
@@ -642,7 +657,8 @@ class SpeculativeEngine(ServingEngine):
 
     ``force_bf16_spec``: run speculation where ``_spec_bf16_oom_risk``
     would fence it (unquantized weights too large for the device), which
-    otherwise falls back to plain greedy decode.
+    otherwise falls back to plain greedy decode. Under a ``mesh`` the fence
+    counts one rank's blocks.
     """
 
     def __init__(self, *args, draft_k: int = 8, prefix_tail: int = 0,
@@ -653,9 +669,6 @@ class SpeculativeEngine(ServingEngine):
         super().__init__(*args, **kwargs)
         if self.options.temperature != 0.0:
             raise ValueError("SpeculativeEngine is greedy-only")
-        if self.mesh is not None:
-            raise ValueError("SpeculativeEngine does not run on a mesh yet; "
-                             "serve sharded params with ServingEngine")
         self.draft_k = draft_k
         self.draft_layers = draft_layers
         self.prefix_tail = prefix_tail
@@ -719,7 +732,7 @@ class SpeculativeEngine(ServingEngine):
                           for k, v in pixel_values.items()}
                     patches = {"patches": encode_frame(
                         self.model.tree(), self.cfg, pv,
-                        attn_impl=self.attn_impl)}
+                        attn_impl=self.attn_impl, mesh=self.mesh)}
                     for p in example_prompts:
                         n = len(self.tokenizer.encode(p))
                         bucket = pick_bucket(n, self.buckets)
@@ -834,7 +847,8 @@ class SpeculativeEngine(ServingEngine):
         kw = dict(max_new=max_new, eos_id=eos, attn_impl=self.attn_impl,
                   k=self.draft_k, draft_layers=self.draft_layers,
                   action_bins=self.action_bins,
-                  action_period=self.action_period, action_tree=tree_arg)
+                  action_period=self.action_period, action_tree=tree_arg,
+                  mesh=self.mesh)
         params = self.model.tree()
         if self._prefix_reusable(ids, mask, vision):
             pre = self._prefix

@@ -274,30 +274,133 @@ def checkpoint_round_trip(params, batch, mesh_shape, run_dir):
             "file_absdiff": file_diff, "step": restored.step}
 
 
-def serve(params, pixels, prompt, mesh_shape=None, *, vocab_size=512,
-          max_new=8, quantize=None):
-    """Greedy tokens of the tiny VLM's ``ServingEngine`` (sharded on the
-    mesh, or unsharded on every rank when ``mesh_shape`` is None)."""
+def _tiny_engine_args(params, mesh_shape, vocab_size, quantize=None):
+    """(tiny config, this rank's tree, tokenizer, mesh) for the serving
+    tasks below: the whole tree on every rank when ``mesh_shape`` is
+    None."""
     from emmax_torch.bridge import params_from_numpy
     from emmax_torch.models.vlm import tiny_vlm_config
     from emmax_torch.parallel import shard_params
-    from emmax_torch.serving.engine import GenerateOptions, ServingEngine
     from emmax_torch.serving.quant import quantize_vlm_params
     from emmax_torch.vla.tokenizer import ByteLevelTokenizer
 
-    cfg = tiny_vlm_config(vocab_size=vocab_size)
-    tok = ByteLevelTokenizer(vocab_size)
     tparams = params_from_numpy(params)
     if quantize is not None:
         tparams = quantize_vlm_params(tparams, bits=quantize)
     mesh = _mesh(mesh_shape) if mesh_shape is not None else None
     if mesh is not None:
         tparams = shard_params(tparams, mesh)
+    return (tiny_vlm_config(vocab_size=vocab_size), tparams,
+            ByteLevelTokenizer(vocab_size), mesh)
+
+
+def serve(params, pixels, prompt, mesh_shape=None, *, vocab_size=512,
+          max_new=8, quantize=None):
+    """Greedy tokens of the tiny VLM's ``ServingEngine`` (sharded on the
+    mesh, or unsharded on every rank when ``mesh_shape`` is None)."""
+    from emmax_torch.serving.engine import GenerateOptions, ServingEngine
+
+    cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
+                                                vocab_size, quantize)
     engine = ServingEngine(cfg, tparams, tok,
                            options=GenerateOptions(eos_id=tok.eos_id),
                            device="cpu", mesh=mesh)
     return engine.generate_ids([prompt], _tensors(pixels),
                                max_new_tokens=max_new)[0]
+
+
+def speculative(params, patches, calls, mesh_shape=None, *, vocab_size=512,
+                quantize=None, engine_kw=None):
+    """``SpeculativeEngine`` (sharded on the mesh) over ``calls``, each
+    ``{"prompts", "max_new", "forced"?}``, on one engine and one patch
+    tensor (so a call may refresh the previous call's tail): per call the
+    tokens, ``last_steps`` and ``last_prefill``."""
+    from emmax_torch.serving.engine import GenerateOptions
+    from emmax_torch.serving.speculative import SpeculativeEngine
+
+    cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
+                                                vocab_size, quantize)
+    engine = SpeculativeEngine(cfg, tparams, tok,
+                               options=GenerateOptions(eos_id=tok.eos_id),
+                               device="cpu", mesh=mesh, **(engine_kw or {}))
+    vision = {"patches": _tensors(patches)}
+    out = []
+    for call in calls:
+        ids = engine.generate_ids(call["prompts"], vision,
+                                  max_new_tokens=call["max_new"],
+                                  forced_tokens=call.get("forced"))
+        out.append({"tokens": ids, "steps": engine.last_steps,
+                    "prefill": engine.last_prefill})
+    return out
+
+
+def batched(params, patches, requests, mesh_shape=None, *, engine,
+            vocab_size=512, engine_kw=None):
+    """The paged (``engine="paged"``) or slot-pool (``"continuous"``)
+    engine, sharded on the mesh, over ``requests`` [(prompt, patch index,
+    max_new)] against ``patches`` (a list): each request's tokens, and
+    whether every page went back to the free list."""
+    from emmax_torch.serving.continuous import ContinuousServingEngine
+    from emmax_torch.serving.paged import PagedServingEngine
+
+    cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
+                                                vocab_size)
+    cls = {"paged": PagedServingEngine,
+           "continuous": ContinuousServingEngine}[engine]
+    eng = cls(cfg, tparams, tok, device="cpu", mesh=mesh,
+              **(engine_kw or {}))
+    vision = [{"patches": _tensors(p)} for p in patches]
+    rids = [eng.submit(prompt, vision[i], max_new_tokens=n)
+            for prompt, i, n in requests]
+    done = eng.run_until_complete()
+    pages = getattr(eng, "free_pages", None)
+    return {"tokens": [done[r] for r in rids],
+            "pages_back": pages is None
+            or sorted(pages) == list(range(eng.n_pages))}
+
+
+def vla_actions(params, frames, prompts, mesh_shape=None, *, vocab_size=512,
+                max_new=16, vla_kw=None):
+    """``EmmaXVLA(..., mesh=)`` (sharded on the mesh) over one closed loop
+    of ``frames`` [uint8 HxWx3] and ``prompts``: per frame the actions,
+    the text and the engine's ``last_steps`` / ``last_prefill``."""
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.ops.image import ImageTransformConfig
+
+    cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
+                                                vocab_size)
+    vla = EmmaXVLA(cfg, tparams, tok,
+                   {n: ImageTransformConfig(size=v.img_size)
+                    for n, v in cfg.vision},
+                   device="cpu", mesh=mesh, **(vla_kw or {}))
+    out = []
+    for frame, prompt in zip(frames, prompts):
+        actions, text = vla.generate_actions(frame, prompt,
+                                             max_new_tokens=max_new)
+        out.append({"actions": [np.asarray(a) for a in actions],
+                    "text": text,
+                    "steps": getattr(vla.engine, "last_steps", None),
+                    "prefill": getattr(vla.engine, "last_prefill", None)})
+    return out
+
+
+def speculative_guards(params, mesh_shape, *, vocab_size=512):
+    """On the mesh: a greedy ``SpeculativeEngine`` is built (the guard
+    that refused a mesh is gone), a sampling one still raises; the
+    message of each raise."""
+    from emmax_torch.serving.engine import GenerateOptions
+    from emmax_torch.serving.speculative import SpeculativeEngine
+
+    cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
+                                                vocab_size)
+    built = SpeculativeEngine(cfg, tparams, tok, device="cpu", mesh=mesh)
+    try:
+        SpeculativeEngine(cfg, tparams, tok, device="cpu", mesh=mesh,
+                          options=GenerateOptions(temperature=0.7))
+        sampling = None
+    except ValueError as e:
+        sampling = str(e)
+    return {"built_on_mesh": built.mesh is mesh, "sampling_raises": sampling}
 
 
 def ring(q, k, v, mesh_shape, axis_name, causal, kv_mask=None):
@@ -331,5 +434,6 @@ def oom_risk(params, mesh_shape, hbm_bytes):
 
 
 TASKS = {f.__name__: f for f in (placement, train_steps,
-                                 checkpoint_round_trip, serve, ring,
-                                 oom_risk)}
+                                 checkpoint_round_trip, serve, speculative,
+                                 batched, vla_actions, speculative_guards,
+                                 ring, oom_risk)}
