@@ -20,18 +20,20 @@ Phases, each raising on failure (the script then exits non-zero):
    through the stacked view. The flash forward runs bf16 on
    the bf16 tensor-core kernel and fp32 on the 3xTF32 one (exact zeros
    and the LSE sentinel on rows that see no key, the same bits on a rerun,
-   in both); the int4 matmul's bf16 x the tensor-core kernel, fp32 x the
-   scalar one. Each is timed
+   in both); the int4 matmul's bf16 x the bf16 tensor-core kernel, fp32 x
+   the TF32 one (the same bits on a rerun, in both). Each is timed
    in the dtype the main path gives it (the towers run in fp32, as in
-   JAX; the decoder in bf16). Max error against the
+   JAX; the decoder in bf16; the Llama prefill in fp32 too, as the
+   checkpoint phase's fp32 path runs it; the int4 matmul in both). Max
+   error against the
    stated tolerance; kernel, plain and library
    (``scaled_dot_product_attention``; ``torch._weight_int4pack_mm`` on
    the weight repacked outside the timed calls) device times from CUDA
    events over a captured CUDA graph, and the kernel's eager time per
    call; the bound (bytes over 3.35 TB/s or operations over the peak for
    their dtype, whichever is larger; the 3xTF32 forward's fp32 operations
-   count three times over the TF32 peak, with one over the fp32 peak
-   beside it);
+   count three times over the TF32 peak and the int4 matmul's on fp32 x
+   twice, each with one over the fp32 peak beside it);
 4. the tiny config on the card (fp32, through the kernels) against the
    same weights on the CPU (plain versions): identical greedy tokens;
    4c. ``hub``: a tiny run dir (fp32, vocab 32064, seeded) exported by
@@ -74,7 +76,13 @@ Phases, each raising on failure (the script then exits non-zero):
    forward depth - 1 per tower, the bf16 one once per decoder layer, int4
    on all 7 weights of every layer and the lm_head in every forward), and
    the load's device peak under the int4 tree plus one bf16 stacked leaf;
-   then a reference ``.pt`` loaded back bit for bit; a
+   with ``dtype=torch.float32, quantize="int4"`` (``int4_fp32_path``: fp32
+   compute under int4 weights) the same codes and scales as the int4
+   load, a warm-up and ``REQUESTS`` timed requests (int4 225
+   launches a forward, all on fp32 x; the fp32 flash forward 49 an encode
+   and 32 a prefill, no bf16 one), and the prefill's last logits through
+   the kernels within ``FP32_RTOL`` of the plain versions' with the same
+   argmax; then a reference ``.pt`` loaded back bit for bit; a
    run dir of the trainer's ``--smoke_test`` on the card giving the same
    tokens on the card and the CPU; and ``--pretrained_checkpoint`` at the
    vla-train cut (``VLA_LAYERS``): the trainer's conversion of a ``.pt``
@@ -327,7 +335,7 @@ TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 MODEL_ID = "prism-dinosiglip-224px+7b"
 TASK = "put the carrot in the pot"
 MAX_NEW = 64
-REQUESTS = 3                   # timed requests per path, after one warm-up
+REQUESTS = 2                   # timed requests per path, after one warm-up
 PROFILE_TOKENS = 16            # the profiled request's max_new_tokens
 # bf16: kernel and plain version round at different places: the flash
 # forward rounds each tile's unnormalised P, the plain version the
@@ -527,13 +535,13 @@ def _template_args(s: str) -> list:
 
 def _kernel_name(mangled: str) -> str:
     """``tc::dkv_kernel<128, true>`` (or ``tc::int4_tc_kernel<8, 1, 4,
-    true>``) for a tensor-core kernel's mangled name; other names as they
-    are."""
-    m = re.search(r"tc\d+int4_tc_kernelI((?:L[ib]\d+E)+)E", mangled)
+    true>``, ``tf32::int4_tc_kernel<4, 4, 4, false>``) for a tensor-core
+    kernel's mangled name; other names as they are."""
+    m = re.search(r"(tc|tf32)\d+int4_tc_kernelI((?:L[ib]\d+E)+)E", mangled)
     if m:
         args = [v if k == "i" else ("true" if v == "1" else "false")
-                for k, v in re.findall(r"L([ib])(\d+)E", m.group(1))]
-        return f"tc::int4_tc_kernel<{', '.join(args)}>"
+                for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+        return f"{m.group(1)}::int4_tc_kernel<{', '.join(args)}>"
     m = re.search(r"paged_attention_cu_\w+?\d+(split_kernel|merge_kernel)"
                   r"I(.*?)EEv", mangled)
     if m:
@@ -569,6 +577,18 @@ def ptxas_usage(build_log: str) -> dict:
             out[name]["registers"] = int(m.group(1))
             out[name]["static_smem"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def int4_resources(kernel) -> dict:
+    """Registers, spills and shared memory of the int4 tensor-core kernels
+    as built: the bf16 ``tc::`` and the TF32 ``tf32::`` instances
+    (``<columns a lane, x tiles, stages, vector copies>``; 8 rows of x per
+    warp or block for one x tile, else 32)."""
+    return kernel_resources(
+        kernel, "emmax_int4_matmul_smem_bytes",
+        {name: (8 * int(name.split(", ")[1]), int(name.startswith("tc::")))
+         for name in ptxas_usage(kernel.build_log)
+         if "::int4_tc_kernel<" in name})
 
 
 def kernel_resources(kernel, smem_symbol: str, entries: dict) -> dict:
@@ -715,12 +735,13 @@ def tinygemm_weight(q4: torch.Tensor, scale: torch.Tensor) -> tuple:
 
 def check_int4(dev, gen, name, M, D, F, layers=8, time_fp32=True):
     """Kernel vs plain at one shape on layer 1 of a stacked weight: fp32 x
-    (the scalar kernel) at FP32_RTOL, bf16 x (the tensor-core kernel) at
-    BF16_RTOL and the same bits on a rerun. Timed over ``layers`` stacked
-    layers in turn, so the weights come from HBM (the stack is larger than
-    the 50 MB L2) as in the decode loop: bf16 x, then (``time_fp32``) fp32
-    x (``"fp32"``). The library call is held against the plain version
-    too, and timed the same way on the same weights repacked beforehand."""
+    (the TF32 tensor-core kernel) at FP32_RTOL, bf16 x (the bf16
+    tensor-core kernel) at BF16_RTOL, each the same bits on a rerun. Timed
+    over ``layers`` stacked layers in turn, so the weights come from HBM
+    (the stack is larger than the 50 MB L2) as in the decode loop: bf16 x,
+    then (``time_fp32``) fp32 x (``"fp32"``). The library call is held
+    against the plain version too, and timed the same way on the same
+    weights repacked beforehand."""
     from emmax_torch.ops import int4_matmul as im
 
     group = 128
@@ -733,6 +754,8 @@ def check_int4(dev, gen, name, M, D, F, layers=8, time_fp32=True):
     got32 = im.int4_matmul_cuda(x32, q4[1], scale[1])
     err32, rel32 = rel_err(got32, im.int4_matmul_reference(x32, q4[1],
                                                             scale[1]))
+    if not torch.equal(im.int4_matmul_cuda(x32, q4[1], scale[1]), got32):
+        raise AssertionError(f"int4 {name} fp32: a rerun changed bits")
     ref = im.int4_matmul_reference(x, q4[1], scale[1])
     got = im.int4_matmul_cuda(x, q4[1], scale[1])
     err, rel = rel_err(got, ref)
@@ -769,20 +792,24 @@ def check_int4(dev, gen, name, M, D, F, layers=8, time_fp32=True):
            "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
            "bound_by": by}
     if time_fp32:
-        # fp32 x: the scalar kernel (no one-call library takes fp32 x:
-        # tinygemm takes bf16); its bound on fp32 x and out bytes and the
-        # fp32 (non-tensor) peak
+        # fp32 x: the TF32 kernel (no one-call library takes fp32 x:
+        # tinygemm takes bf16). Its bound: fp32 x and out bytes, and the
+        # two TF32 products it makes of each product (x split into big +
+        # small) at the TF32 peak; one product at the fp32 (non-tensor)
+        # peak beside it, the bound of the scalar kernel it replaced
         ms32, eager32 = time_ms(rotate(
             lambda i: im.int4_matmul_cuda(x32, q4[i], scale[i])),
             iters=layers)
         plain32, _ = time_ms(rotate(
             lambda i: im.int4_matmul_reference(x32, q4[i], scale[i])),
             iters=layers)
-        bms32, by32 = bound_ms(n_bytes + M * D * 2 + M * F * 2,
-                               2.0 * M * D * F, FP32_FLOPS_PER_S)
-        rec["fp32"] = {"ms": ms32, "eager_ms": eager32, "plain_ms": plain32,
+        n32 = n_bytes + M * D * 2 + M * F * 2
+        bms32, by32 = bound_ms(n32, 2 * 2.0 * M * D * F, TF32_FLOPS_PER_S)
+        rec["fp32"] = {"shape": name, "ms": ms32, "eager_ms": eager32, "plain_ms": plain32,
                        "library_ms": None, "bound_ms": bms32,
-                       "bound_by": by32, "max_abs_err": err32}
+                       "bound_by": by32, "bound_fp32_fma_ms": bound_ms(
+                           n32, 2.0 * M * D * F, FP32_FLOPS_PER_S)[0],
+                       "max_abs_err": err32, "rel_err": rel32}
     return rec
 
 
@@ -831,6 +858,12 @@ def kernel_phase(dev):
             for M in (1, 6, SPEC_W_LINEAR, TAIL, SPEC_W_TREE, 48, Lq)
             for n, d, f in shapes]
     flash += towers[2:] + [
+        # the prefill under fp32 compute (int4 weights on fp32 x, the
+        # checkpoint phase's fp32 path): the 3xTF32 forward, causal
+        check_flash(dev, gen, f"llama prefill fp32 B1 Lq{Lq} S{S} "
+                    f"H{llm.n_heads} D{llm.head_dim} causal "
+                    f"pad{bucket - n_tok}", 1, Lq, S, llm.n_heads,
+                    llm.head_dim, True, bucket - n_tok, torch.float32),
         # the prefix-KV tail refresh: the last TAIL fused slots again, at
         # their offset, into the closed loop's whole cache
         check_flash(dev, gen, f"llama tail refresh B1 Lq{TAIL} S{s_cache} "
@@ -1132,8 +1165,9 @@ def paged_kernel_phase(dev):
 def tiny_parity(dev):
     """The tiny config through the kernels (fp32) on the card against the
     same weights through the plain versions on the CPU; the int4 tree's
-    card request runs the int4 kernel on fp32 x (the scalar kernel), whose
-    launches by dtype are printed and must be non-zero."""
+    card request runs the int4 kernel on fp32 x (the TF32 kernel: D 64
+    gives group 32), whose launches by dtype are printed and must be
+    non-zero."""
     from emmax_torch.models.load import load
     from emmax_torch.models.vla import EmmaXVLA
     from emmax_torch.ops import int4_matmul
@@ -1564,6 +1598,124 @@ def greedy_ids(vla, frame, prompt, n: int = MAX_NEW) -> list:
                                    max_new_tokens=n)[0].tolist()
 
 
+def int4_fp32_path(dev, path, tree4, kernels) -> dict:
+    """``load_vla(path, dtype=torch.float32, quantize="int4")``: full-width
+    Emma-X in fp32 compute under int4 weights, the route of a user of the
+    published bf16 weights who wants fp32 activations in int4's weight
+    memory (JAX: ``load_vla(path, dtype=jnp.float32, quantize="int4")``).
+    Gates: the codes and scales equal ``tree4``, the bf16 int4 load of the
+    same directory, bit for bit (bf16 -> fp32 is exact); in every request
+    the int4 kernel launches 225 times a forward (7 weights of 32 layers
+    and the lm_head), all on fp32 x, and the flash forward 49 times an
+    encode and 32 a prefill, all fp32; the prefill's last logits through
+    the kernels within ``FP32_RTOL`` of the plain versions' (the flash and
+    int4 plain versions, on the same patches) with the same argmax. One
+    warm-up and ``REQUESTS`` timed requests of ``MAX_NEW``
+    tokens: encode / prefill / decode ms, tok/s, request ms, and the
+    device peak above what the phase held before the load."""
+    from emmax_torch.models.load import load_vla
+    from emmax_torch.ops import int4_matmul as im
+    from emmax_torch.serving.engine import (_prefill_last_logits, _round_up,
+                                            encode_frame)
+    from emmax_torch.serving.quant import QUANT_KEYS
+
+    base = torch.cuda.memory_allocated(dev)   # what the phase holds already
+    t0 = time.perf_counter()
+    vla = load_vla(path, dtype=torch.float32, device="cuda", quantize="int4")
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    tree = vla.engine.model.tree()
+    llm, cfg = tree["llm"], vla.cfg
+    if llm["embed"].dtype != torch.float32:
+        raise AssertionError(f"fp32 int4 load: embed is {llm['embed'].dtype}")
+    for k in (*[k for k in QUANT_KEYS if k in llm["layers"]], None):
+        a = llm["layers"][k] if k else llm["lm_head"]
+        b = tree4["llm"]["layers"][k] if k else tree4["llm"]["lm_head"]
+        if not (torch.equal(a["q4"], b["q4"]) and torch.equal(
+                a["scale"].view(torch.int16), b["scale"].view(torch.int16))):
+            raise AssertionError(f"fp32 int4 load: {k or 'lm_head'} codes or "
+                                 f"scales differ from the bf16 int4 load's")
+    rng = np.random.default_rng(11)
+    frames = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+              for _ in range(REQUESTS + 1)]
+    prompt = vla.get_prompt(TASK, gripper_position=(128, 96))
+    blocks = sum(v.depth - 1 for _, v in cfg.vision)
+    per_forward = 7 * cfg.llm.n_layers + 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    for i, frame in enumerate(frames):
+        for k in kernels:
+            k.reset_counts()
+        t0 = time.perf_counter()
+        actions, _ = vla.generate_actions(frame, prompt, type="act",
+                                          max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        if not all(a.shape == (7,) and np.isfinite(a).all() for a in actions):
+            raise AssertionError(f"fp32 int4: bad actions {actions!r}")
+        tm = dict(vla.engine.last_timings)
+        forwards = 1 + tm["decode_forwards"]
+        by = {k.name: dict(k.launches_by) for k in kernels}
+        want = {"int4_matmul": {"float32": per_forward * forwards},
+                "flash_fwd": {"float32": blocks + cfg.llm.n_layers}}
+        for name, w in want.items():
+            if by[name] != w:
+                raise AssertionError(f"fp32 int4 request {i}: {name} "
+                                     f"launches {by[name]} != {w}")
+        tm.update(request_ms=wall, warmup=i == 0, forwards=forwards,
+                  decode_tok_s=(tm["decode_forwards"] / tm["decode_ms"] * 1e3
+                                if tm["decode_forwards"] else None),
+                  launches_by={k: by[k] for k in want})
+        rows.append(tm)
+        log(f"fp32 int4 request {i}: " + json.dumps(tm))
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    # the prefill's last logits through the kernels and through the plain
+    # versions (attn_impl "torch"; the int4 wrapper sent to its plain
+    # version), on the same patches
+    eng = vla.engine
+    patches = encode_frame(tree, cfg, vla._pixels(frames[0]))
+    ids, mask = eng._prepare([prompt])
+    cache_len = _round_up(cfg.num_patches + ids.shape[1] + 8)
+    before = im.KERNEL.launches
+    logits = _prefill_last_logits(tree, cfg, ids, mask, {"patches": patches},
+                                  cache_len=cache_len, attn_impl="cuda")
+    if im.KERNEL.launches - before != per_forward:
+        raise AssertionError("fp32 int4 logits: the kernel path launched "
+                             f"{im.KERNEL.launches - before} int4 kernels")
+    kernel_fn = im.int4_matmul_cuda
+    im.int4_matmul_cuda = im.int4_matmul_reference
+    try:
+        plain = _prefill_last_logits(tree, cfg, ids, mask,
+                                     {"patches": patches},
+                                     cache_len=cache_len, attn_impl="torch")
+    finally:
+        im.int4_matmul_cuda = kernel_fn
+    err, rel = rel_err(logits, plain)
+    same_argmax = bool((logits.argmax(-1) == plain.argmax(-1)).all())
+    if not (rel <= FP32_RTOL and same_argmax):
+        raise AssertionError(f"fp32 int4 prefill logits: kernels vs plain "
+                             f"rel err {rel:.3g} (tol {FP32_RTOL}), same "
+                             f"argmax {same_argmax}")
+    del vla, tree, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = [r for r in rows if not r["warmup"]]
+    return {"load_s": load_s, "requests": len(timed),
+            "encode_ms": float(np.mean([r["encode_ms"] for r in timed])),
+            "prefill_ms": float(np.mean([r["prefill_ms"] for r in timed])),
+            "decode_ms": float(np.mean([r["decode_ms"] for r in timed])),
+            "decode_tok_s": float(np.mean([r["decode_tok_s"]
+                                           for r in timed])),
+            "request_ms": float(np.mean([r["request_ms"] for r in timed])),
+            "prefill_tokens": timed[0]["prefill_tokens"],
+            "serving_peak_gb": peak_gb,
+            "int4_launches_per_forward": per_forward,
+            "launches_by_timed": [r["launches_by"] for r in timed],
+            "prefill_logits_max_abs_err": err,
+            "prefill_logits_rel_err": rel, "tolerance": FP32_RTOL,
+            "same_argmax": same_argmax}
+
+
 def checkpoint_phase(dev, kernels) -> dict:
     """Serve and fine-tune from checkpoints written by the port's
     exporters from phase 5's seeded full-width params (``load(MODEL_ID,
@@ -1708,6 +1860,14 @@ def checkpoint_phase(dev, kernels) -> dict:
             raise AssertionError(f"HF int4 load: tokens {got4_ids} != "
                                  f"in-memory card-quantized {ref4_ids}")
         req = served_request(vla4, frame, prompt, kernels, quantized=True)
+        del vla4, want4
+        gc.collect()
+        torch.cuda.empty_cache()
+        # int4 weights under fp32 compute, from the same directory
+        t0 = time.perf_counter()
+        out["hf_int4_fp32"] = int4_fp32_path(dev, tmp, tree4, kernels)
+        out["hf_int4_fp32"]["step_s"] = time.perf_counter() - t0
+        log("checkpoint hf int4 fp32 " + json.dumps(out["hf_int4_fp32"]))
         out["hf_int4"] = {
             "load_s": load4_s, **host.gb(),
             "device_peak_gb": device_peak / 1e9,
@@ -1719,7 +1879,7 @@ def checkpoint_phase(dev, kernels) -> dict:
             "same_tokens_as_bf16": got4_ids == ref_ids,
             "request": {k: v for k, v in req.items() if k != "text"}}
         log("checkpoint hf int4 " + json.dumps(out["hf_int4"]))
-        del vla4, tree4, want4
+        del tree4
         gc.collect()
         torch.cuda.empty_cache()
     finally:
@@ -4940,12 +5100,8 @@ def main(argv) -> int:
     log("flash_fwd resources " + json.dumps(fwd_res))
     paged_res = ptxas_usage(pa.KERNEL.build_log)     # static shared only
     log("paged_attention resources " + json.dumps(paged_res))
-    int4_res = kernel_resources(
-        int4_matmul.KERNEL, "emmax_int4_matmul_smem_bytes",
-        {name: (8 * int(name.split(", ")[1]),)
-         for name in ptxas_usage(int4_matmul.KERNEL.build_log)
-         if name.startswith("tc::int4_tc_kernel<")})
-    log("int4_matmul bf16 resources " + json.dumps(int4_res))
+    int4_res = int4_resources(int4_matmul.KERNEL)
+    log("int4_matmul resources " + json.dumps(int4_res))
     flash, int4 = kernel_phase(dev)
     train_kernels = training_kernel_phase(dev)
     paged_kernels = paged_kernel_phase(dev)
@@ -5036,7 +5192,11 @@ def main(argv) -> int:
                                       "library_ms", "bound_ms", "bound_by",
                                       "bound_fp32_fma_ms", "max_abs_err",
                                       "fp32_rel_err")}
-                   for r in flash if r["dtype"] == "float32"]}
+                   for r in flash if r["dtype"] == "float32"
+                   and not r["shape"].startswith("llama")]}
+    prefill32 = next(r for r in flash
+                     if r["shape"].startswith("llama prefill fp32"))
+    fp32_int4 = ckpt["hf_int4_fp32"]
     zoo_of = zoo_entries(zoo)
 
     def rlds_launches(name):
@@ -5068,6 +5228,12 @@ def main(argv) -> int:
                            full_step["flash_fwd"]["float32"]},
               launches_checkpoint_request_by_dtype=ckpt["hf_int4"][
                   "request"]["flash_fwd_by_dtype"],
+              serving_fp32={**{k: prefill32[k] for k in (
+                  "shape", "ms", "eager_ms", "plain_ms", "library_ms",
+                  "bound_ms", "bound_by", "bound_fp32_fma_ms",
+                  "max_abs_err", "fp32_rel_err")},
+                  "launches_fp32_int4_requests": [
+                      r["flash_fwd"] for r in fp32_int4["launches_by_timed"]]},
               launches_rlds_gcot_vla=rlds_launches("flash_fwd"),
               launches_eval=ev["launches_eval"],
               zoo=zoo_of["flash_fwd"]),
@@ -5119,11 +5285,27 @@ def main(argv) -> int:
               launches_checkpoint_int4_request=ckpt["hf_int4"]["request"][
                   "launches"]["int4_matmul"],
               launches_eval=ev["int4_launches_eval"],
-              resources=int4_res,
+              resources={n: r for n, r in int4_res.items()
+                         if n.startswith("tc::")},
               shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms",
                                          "library_ms", "bound_ms",
                                          "bound_by", "max_abs_err")}
                       for r in int4], zoo=zoo_of["int4_matmul"]),
+        entry(int4[1]["fp32"], int4_matmul.KERNEL,
+              "emmax_tpu/ops/int4_matmul.py:345",
+              sum(r["int4_matmul"]["float32"]
+                  for r in fp32_int4["launches_by_timed"]),
+              name="int4_matmul_fp32", dtype="float32",
+              launches_path=f"fp32 + int4 serving ({REQUESTS} "
+                            f"timed requests of the checkpoint phase)",
+              launches_per_forward=fp32_int4["int4_launches_per_forward"],
+              bound_fp32_fma_ms=int4[1]["fp32"]["bound_fp32_fma_ms"],
+              resources={n: r for n, r in int4_res.items()
+                         if n.startswith("tf32::")},
+              shapes=[{k: r["fp32"][k] for k in (
+                  "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                  "bound_by", "bound_fp32_fma_ms", "max_abs_err",
+                  "rel_err")} for r in int4]),
         entry(paged_kernels[1], pa.KERNEL, "emmax_tpu/serving/paged.py:362",
               batched["paged kernel int8"]["launches"]["paged_attention"],
               launches_path="full-width paged kernel run (int8 pages), "

@@ -59,14 +59,45 @@
 // sums in split order: deterministic, no atomics. The ragged column edge
 // (lm_head F = 32064) is masked per 4-byte word (F % 4 == 0).
 //
-// fp32 x (and bf16 x whose group is not a multiple of 16): the scalar
-// kernel (namespace `scalar`). A block of 4 warps owns 128 output
-// columns (4 per lane, one 32-bit load of 4 packed bytes per row) and MT
-// rows of x; the packed rows are walked one quantisation group at a time:
-// the group's x values (both planes) are staged in shared memory, each
-// warp takes every 4th packed row, unpacks both nibbles in registers and
-// accumulates per plane in fp32 FMAs; the group scale is applied once per
-// group to the partial sums, as the TPU kernel does. Split-K as above.
+// fp32 x: TF32 tensor-core kernel (namespace `tf32`), mma.sync m16n8k8
+// with the same swapped roles: the weight is the 16-row A operand, 8 rows
+// of x the B operand. What differs from the bf16 kernel:
+//   - two products, not three: every level q + 0.5 lies in +-7.5 in steps
+//     of 1 (at most 4 significant bits), so it is exact in tf32; only x is
+//     split, x = big + small (`split_tf32`, cvt.rna), and each product is
+//     level * big + level * small, summed in fp32 by the tensor core. The
+//     x values are not rounded to bf16 (the TPU kernel does so,
+//     int4_matmul.py:311-313); the port's fp32 path keeps fp32's accuracy,
+//     as JAX's XLA route does;
+//   - each nibble becomes its fp32 level in registers: masked into the
+//     mantissa of 2^(23 - s) (s its bit position, ulp 1) and 2^(23 - s) +
+//     7.5 subtracted, both exact; bytes 0 / 1 of a word sit at s = 4 .. 12
+//     as they are, bytes 2 / 3 after one shift, so a word's 8 levels take
+//     2 shifts, 8 masks and 8 subtractions;
+//   - the k order: lane (g, t) holds packed rows k0 + 4 t .. + 3 of its
+//     columns, and packed row k0 + 4 t + 2 h + i (i = 0, 1) is the k t + 4 i
+//     of the step's h-th MMA; x is read in the same order, so a lane's B of
+//     both MMAs is one 16-byte run x[m, k0 + 4 t ..] of each plane;
+//   - x is shared by a block: 4 warps on neighbouring column tiles (64
+//     columns and 8 rows of x each at M <= 8, 32 columns and 32 rows
+//     above) share the block's rows of x. Every thread helps copy the
+//     step's x tile into the stage and splits what it copied, once for the
+//     block, and one barrier a step publishes it (warps copying their own
+//     x, as the bf16 kernel's do, would re-read fp32 x from L2 once per 32
+//     columns: at prefill's rows more bytes than the weights);
+//   - the group sums, scales, split-K and column masks are the bf16
+//     kernel's.
+//
+// The scalar kernel (namespace `scalar`) serves only the groups that the
+// tensor-core kernels cannot take: those that are not a multiple of 16
+// (D / 2 % 16 != 0; e.g. D 80 gives group 8), in either dtype. A block of
+// 4 warps owns 128 output columns (4 per lane, one 32-bit load of 4 packed
+// bytes per row) and MT rows of x; the packed rows are walked one
+// quantisation group at a time: the group's x values (both planes) are
+// staged in shared memory, each warp takes every 4th packed row, unpacks
+// both nibbles in registers and accumulates per plane in fp32 FMAs; the
+// group scale is applied once per group to the partial sums, as the TPU
+// kernel does. Split-K as above.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -94,6 +125,12 @@ cudaError_t reduce(const void* part, void* out, int splits, int M, int F,
                           stream>>>(static_cast<const float*>(part),
                                     static_cast<T*>(out), splits, n);
   return cudaGetLastError();
+}
+
+// bf16 number i (0..3) of four packed in a uint2, as fp32
+__device__ __forceinline__ float bf16_at(uint2 v, int i) {
+  const uint32_t w = i < 2 ? v.x : v.y;
+  return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
 }
 
 // ------------------------------------------------------ scalar (fp32) ---
@@ -285,12 +322,6 @@ __device__ __forceinline__ uint32_t lo_level(uint32_t v) {
 }
 __device__ __forceinline__ uint32_t hi_level(uint32_t v) {
   return fma_bf16x2((v & 0x001e001eu) ^ 0x42904290u, ONE2, BIAS2);
-}
-
-// bf16 number i (0..3) of four packed in a uint2, as fp32
-__device__ __forceinline__ float bf16_at(uint2 v, int i) {
-  const uint32_t w = i < 2 ? v.x : v.y;
-  return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
 }
 
 // VEC: the lane's CPL = 8 bytes of a row are one 8-byte cp.async
@@ -524,19 +555,413 @@ int smem_of(int mt) {
 
 }  // namespace tc
 
+// --------------------------------------------------- tensor core (fp32) ---
+
+namespace tf32 {
+
+using emmax::mma::cp_async_16;
+using emmax::mma::cp_async_ca;
+using emmax::mma::cp_async_commit;
+using emmax::mma::cp_async_wait;
+using emmax::mma::mma_1688_tf32;
+using emmax::mma::split_tf32;
+
+constexpr int NW = 4;   // warps per block
+
+struct Args {
+  const float* x;                  // [M, D]
+  const int8_t* q4;                // [D/2, F]
+  const __nv_bfloat16* scale;      // [D/group, F]
+  float* part;                     // [splits, M, F] when splits > 1
+  float* out;                      // [M, F]
+  int M, D, F, group, gps, splits;
+};
+
+// b32 of a lane's slot per stage: its 4 packed rows of W words, padded to
+// an odd number of 16-byte chunks (no bank conflict on its 16-byte reads)
+__host__ __device__ constexpr int lane_b32(int W) {
+  return W % 2 ? 4 * W : 4 * W + 4;
+}
+// b32 of a block's stage: the shared x tile (2 planes x MT rows x 16 fp32,
+// its big parts, then its small parts), then every lane's slot
+__host__ __device__ constexpr int stage_b32(int NN, int W) {
+  return 2 * 2 * 8 * NN * 16 + NW * 32 * lane_b32(W);
+}
+constexpr int smem_bytes(int NN, int W, int stages) {
+  return stages * stage_b32(NN, W) * 4;
+}
+
+// the exact fp32 level of the nibble at bits S .. S + 3 of w (S = 4, 8, 12
+// or 16), as a tf32 operand: the nibble placed in the mantissa of 2^E, E =
+// 23 - S, where its ulp is 1, then 2^E + 7.5 subtracted (both exact). The
+// low plane's u (stored +8) gives u - 7.5; the high plane's n (two's
+// complement) has its top bit flipped first: (n ^ 8) - 7.5 = n + 0.5. A
+// level has at most 4 significant bits, so it is exact in tf32
+template <int S, bool HI>
+__device__ __forceinline__ uint32_t level(uint32_t w) {
+  constexpr int E = 23 - S;
+  constexpr uint32_t BASE = (uint32_t)(127 + E) << 23;
+  constexpr float OFF = (float)(1 << E) + 7.5f;
+  const uint32_t m = w & (0xfu << S);
+  return __float_as_uint(
+      __uint_as_float(HI ? m ^ (BASE | (8u << S)) : m | BASE) - OFF);
+}
+
+// the levels in plane P (0 low, 1 high) of bytes 2 H and 2 H + 1 of w: the
+// columns at rows g and g + 8 of an m16 tile. Two shifts serve a word's
+// eight levels
+template <int H, int P>
+__device__ __forceinline__ void levels(uint32_t w, uint32_t& a, uint32_t& b) {
+  if (H == 0 && P == 0) {
+    a = level<8, false>(w << 8);
+    b = level<8, false>(w);
+  } else if (H == 0) {
+    a = level<4, true>(w);
+    b = level<12, true>(w);
+  } else if (P == 0) {
+    a = level<16, false>(w);
+    b = level<8, false>(w >> 16);
+  } else {
+    a = level<4, true>(w >> 16);
+    b = level<12, true>(w >> 16);
+  }
+}
+
+// A warp: CPL * 8 columns, MT = 8 * NN rows of x, a range of groups; the
+// NW warps of a block take neighbouring column tiles and share the
+// block's x tile. Per k-step of 16 packed rows each lane copies its
+// weight bytes (as the bf16 kernel does) into its slot of a ring of
+// STAGES stages, every thread helps copy the x tile, and one barrier a
+// step publishes the tile and frees the stage read the step before.
+// VEC: 8-byte weight copies (F % 8 == 0)
+template <int CPL, int NN, int STAGES, bool VEC>
+__global__ void __launch_bounds__(32 * NW) int4_tc_kernel(Args a) {
+  constexpr int W = CPL / 4;       // 4-byte words per lane and packed row
+  constexpr int TW = CPL / 2;      // m16 tiles per warp
+  constexpr int COLS = 8 * CPL;    // output columns per warp
+  constexpr int MT = 8 * NN;       // rows of x per block
+  constexpr int XT = 2 * MT * 16;  // b32 of an x tile
+  constexpr int LS = lane_b32(W);
+  constexpr int STAGE = stage_b32(NN, W);
+  constexpr int XCH = XT / 4;      // 16-byte runs of an x tile
+  // the 16-byte runs of x a thread copies each step
+  constexpr int XQ = (XCH + 32 * NW - 1) / (32 * NW);
+  static_assert(!VEC || CPL == 8, "vector copies are 8-byte runs");
+
+  extern __shared__ __align__(16) unsigned char smem_tf[];
+  uint32_t* const smem = reinterpret_cast<uint32_t*>(smem_tf);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // a block of NW column tiles; the row tiles of one column block are
+  // neighbouring blocks (L2 reuse of the weights)
+  const int n_mt = (a.M + MT - 1) / MT;
+  const int n_cb = (a.F + NW * COLS - 1) / (NW * COLS);
+  const int mt = (int)(blockIdx.x % n_mt);
+  const int ct = (int)((blockIdx.x / n_mt) % n_cb) * NW + warp;
+  const int ks = (int)(blockIdx.x / (n_mt * n_cb));
+  const int c0 = ct * COLS, m0 = mt * MT;
+  const int D2 = a.D >> 1, Gh = D2 / a.group;
+  const int g_begin = ks * a.gps, g_end = min(Gh, g_begin + a.gps);
+  const int spg = a.group / 16;   // k-steps per group
+
+  // this lane's word i holds output columns c0 + CPL g + 4 i .. + 3 (VEC)
+  // or c0 + 32 i + 4 g .. + 3, as in the bf16 kernel
+  int col[W];
+  bool col_ok[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    col[i] = VEC ? c0 + CPL * g + 4 * i : c0 + 32 * i + 4 * g;
+    col_ok[i] = col[i] < a.F;   // F % 4 == 0: a word is all in or all out
+  }
+
+  // the next step's sources: packed rows k + 4t .. k + 4t + 3 of the lane's
+  // words (column 0 stands in for those past F), and the thread's runs of
+  // x, fp32 4 j .. 4 j + 3 of the step in plane p of row r (row 0 stands
+  // in for rows past M; both copied as zeros), 16 rows on per step: run c
+  // of the tile is p = c / (4 MT), r = (c / 4) % MT, j = c % 4 at b32 4 c
+  // of the stage
+  const int k_first = g_begin * a.group;
+  const int8_t* wsrc[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    wsrc[i] = a.q4 + (long long)(k_first + 4 * t) * a.F +
+              (col_ok[i] ? col[i] : 0);
+  uint32_t* const own = smem + 2 * XT + (warp * 32 + lane) * LS;  // stage 0
+  const float* xsrc[XQ];
+  uint32_t* xdst[XQ];
+  bool x_mine[XQ], x_ok[XQ];
+#pragma unroll
+  for (int q = 0; q < XQ; ++q) {
+    const int c = threadIdx.x + 32 * NW * q;
+    const int p = c / (4 * MT), r = (c >> 2) % MT, j = c & 3;
+    x_mine[q] = c < XCH;
+    x_ok[q] = x_mine[q] && m0 + r < a.M;
+    xsrc[q] = a.x + (long long)(x_ok[q] ? m0 + r : 0) * a.D +
+              (x_mine[q] ? p * D2 : 0) + k_first + 4 * j;
+    xdst[q] = smem + 4 * c;
+  }
+  const long long wstep = 16LL * a.F;
+  int wstage = 0;
+  auto issue = [&]() {
+#pragma unroll
+    for (int q = 0; q < XQ; ++q) {
+      if (x_mine[q])
+        cp_async_16(xdst[q] + wstage * STAGE, xsrc[q], x_ok[q]);
+      xsrc[q] += 16;
+    }
+    uint32_t* const slot = own + wstage * STAGE;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (VEC) {   // F % 8 == 0: the run is all in or all out
+        cp_async_ca<8>(slot + r * W, wsrc[0] + r * a.F, col_ok[0]);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        cp_async_ca<4>(slot + r * W + i, wsrc[i] + r * a.F, col_ok[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) wsrc[i] += wstep;
+    wstage = wstage + 1 == STAGES ? 0 : wstage + 1;
+  };
+
+  const int n_steps = (g_end - g_begin) * spg;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) issue();
+    cp_async_commit();
+  }
+  int to_issue = n_steps - (STAGES - 1);
+  int rstage = 0;
+
+  float tot[TW][NN][4], alo[TW][NN][4], ahi[TW][NN][4];
+#pragma unroll
+  for (int j = 0; j < TW; ++j)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tot[j][n][e] = alo[j][n][e] = ahi[j][n][e] = 0.f;
+
+  for (int gi = g_begin; gi < g_end; ++gi) {
+    uint2 slo[W], shi[W];   // the group's scales of the lane's columns
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint2 zero = make_uint2(0u, 0u);
+      const __nv_bfloat16* sp = a.scale + (long long)gi * a.F + col[i];
+      slo[i] = col_ok[i] ? __ldg(reinterpret_cast<const uint2*>(sp)) : zero;
+      shi[i] = col_ok[i] ? __ldg(reinterpret_cast<const uint2*>(
+                               sp + (long long)Gh * a.F))
+                         : zero;
+    }
+    for (int kin = 0; kin < spg; ++kin) {
+      cp_async_wait<STAGES - 2>();   // this thread's copies of the step
+      uint32_t* const st = smem + rstage * STAGE;
+      // each thread splits the runs it copied, once for the block: big in
+      // place, small XT b32 on; then everyone's are published, and the
+      // stage read last step is free for the step STAGES - 1 ahead
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) {
+        if (!x_mine[q]) continue;
+        uint32_t* const run = xdst[q] + rstage * STAGE;
+        const float4 v = *reinterpret_cast<const float4*>(run);
+        uint4 big, small;
+        split_tf32(v.x, big.x, small.x);
+        split_tf32(v.y, big.y, small.y);
+        split_tf32(v.z, big.z, small.z);
+        split_tf32(v.w, big.w, small.w);
+        *reinterpret_cast<uint4*>(run) = big;
+        *reinterpret_cast<uint4*>(run + XT) = small;
+      }
+      __syncthreads();
+      if (to_issue-- > 0) issue();
+      cp_async_commit();
+      rstage = rstage + 1 == STAGES ? 0 : rstage + 1;
+
+      const uint32_t* const mine = st + 2 * XT + (warp * 32 + lane) * LS;
+      uint32_t d[4 * W];   // d[r W + i]: word i of packed row k + 4t + r
+      const uint4* wp = reinterpret_cast<const uint4*>(mine);
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        const uint4 v = wp[c];
+        d[4 * c] = v.x;
+        d[4 * c + 1] = v.y;
+        d[4 * c + 2] = v.z;
+        d[4 * c + 3] = v.w;
+      }
+      // A of tile j, plane p, half h: MMA k t is packed row 4t + 2h, k t +
+      // 4 row 4t + 2h + 1; A rows g / g + 8 are bytes 2 (j & 1) / + 1 of
+      // word j / 2
+      auto tile_levels = [&](int j, uint32_t (&lv)[2][2][4]) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t w0 = d[2 * h * W + (j >> 1)];
+          const uint32_t w1 = d[(2 * h + 1) * W + (j >> 1)];
+          if (j & 1) {
+            levels<1, 0>(w0, lv[0][h][0], lv[0][h][1]);
+            levels<1, 0>(w1, lv[0][h][2], lv[0][h][3]);
+            levels<1, 1>(w0, lv[1][h][0], lv[1][h][1]);
+            levels<1, 1>(w1, lv[1][h][2], lv[1][h][3]);
+          } else {
+            levels<0, 0>(w0, lv[0][h][0], lv[0][h][1]);
+            levels<0, 0>(w1, lv[0][h][2], lv[0][h][3]);
+            levels<0, 1>(w0, lv[1][h][0], lv[1][h][1]);
+            levels<0, 1>(w1, lv[1][h][2], lv[1][h][3]);
+          }
+        }
+      };
+      // B of x tile n: x[m0 + 8n + g, k + 4t + 2h], x[.., k + 4t + 2h + 1]
+      // in each plane, split into big + small once for the block: two
+      // products, exact levels times each part
+      auto x_parts = [&](int n, uint32_t (&big)[2][4],
+                         uint32_t (&small)[2][4]) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t* const run = st + (p * MT + 8 * n + g) * 16 + 4 * t;
+          const uint4 b = *reinterpret_cast<const uint4*>(run);
+          const uint4 sm = *reinterpret_cast<const uint4*>(run + XT);
+          big[p][0] = b.x, big[p][1] = b.y, big[p][2] = b.z, big[p][3] = b.w;
+          small[p][0] = sm.x, small[p][1] = sm.y, small[p][2] = sm.z;
+          small[p][3] = sm.w;
+        }
+      };
+      auto products = [&](int j, int n, const uint32_t (&lv)[2][2][4],
+                          const uint32_t (&big)[2][4],
+                          const uint32_t (&small)[2][4]) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mma_1688_tf32(alo[j][n], lv[0][h], big[0][2 * h],
+                        big[0][2 * h + 1]);
+          mma_1688_tf32(alo[j][n], lv[0][h], small[0][2 * h],
+                        small[0][2 * h + 1]);
+          mma_1688_tf32(ahi[j][n], lv[1][h], big[1][2 * h],
+                        big[1][2 * h + 1]);
+          mma_1688_tf32(ahi[j][n], lv[1][h], small[1][2 * h],
+                        small[1][2 * h + 1]);
+        }
+      };
+      if constexpr (NN > 1) {
+        // every tile's levels, then x tile by x tile (the levels serve NN
+        // x tiles, each x tile's parts are read once)
+        uint32_t lv[TW][2][2][4];
+#pragma unroll
+        for (int j = 0; j < TW; ++j) tile_levels(j, lv[j]);
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          uint32_t big[2][4], small[2][4];
+          x_parts(n, big, small);
+#pragma unroll
+          for (int j = 0; j < TW; ++j) products(j, n, lv[j], big, small);
+        }
+      } else {
+        // the one x tile's parts, then tile by tile (fewer live levels)
+        uint32_t big[2][4], small[2][4];
+        x_parts(0, big, small);
+#pragma unroll
+        for (int j = 0; j < TW; ++j) {
+          uint32_t lv[2][2][4];
+          tile_levels(j, lv);
+          products(j, 0, lv, big, small);
+        }
+      }
+    }
+
+    // the group's end: scale its sums per column
+#pragma unroll
+    for (int j = 0; j < TW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int sc = 2 * (j & 1) + (e >> 1);
+        const float sl = bf16_at(slo[j >> 1], sc);
+        const float sh = bf16_at(shi[j >> 1], sc);
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          tot[j][n][e] += alo[j][n][e] * sl + ahi[j][n][e] * sh;
+          alo[j][n][e] = ahi[j][n][e] = 0.f;
+        }
+      }
+  }
+
+  // C element e: column row g + 8 (e >> 1) of tile j, x row 2t + (e & 1)
+#pragma unroll
+  for (int j = 0; j < TW; ++j) {
+    const int cj = col[j >> 1] + 2 * (j & 1);
+    if (!col_ok[j >> 1]) continue;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int m = m0 + 8 * n + 2 * t + q;
+        if (m >= a.M) continue;
+        float* dst = a.splits > 1
+                         ? a.part + ((long long)ks * a.M + m) * a.F + cj
+                         : a.out + (long long)m * a.F + cj;
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(tot[j][n][q], tot[j][n][2 + q]);
+      }
+  }
+}
+
+template <int CPL, int NN, int STAGES, bool VEC>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int smem = smem_bytes(NN, CPL / 4, STAGES);
+  cudaError_t err = cudaFuncSetAttribute(
+      int4_tc_kernel<CPL, NN, STAGES, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // a block of NW column tiles, for each row tile and split
+  const long long blocks = (long long)((a.F + NW * 8 * CPL - 1) /
+                                       (NW * 8 * CPL)) *
+                           ((a.M + 8 * NN - 1) / (8 * NN)) * a.splits;
+  int4_tc_kernel<CPL, NN, STAGES, VEC>
+      <<<(unsigned)blocks, 32 * NW, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return reduce<float>(a.part, a.out, a.splits, a.M, a.F, stream);
+}
+
+// the two shapes, by mt, the rows of x of a block: (columns a lane, x
+// tiles, stages); mt 8 a block of NW warps on 64 columns each, mt 32 on
+// 32 columns each
+constexpr int SMALL_CPL = 8, SMALL_STAGES = 4;                 // M <= 8
+constexpr int LARGE_CPL = 4, LARGE_NN = 4, LARGE_STAGES = 4;   // mt 32
+
+cudaError_t dispatch(const Args& a, int mt, cudaStream_t s) {
+  if (a.splits > 1 && a.part == nullptr) return cudaErrorInvalidValue;
+  const bool vec = a.F % SMALL_CPL == 0 &&
+                   reinterpret_cast<uintptr_t>(a.q4) % SMALL_CPL == 0;
+  if (mt == 8)
+    return vec ? launch<SMALL_CPL, 1, SMALL_STAGES, true>(a, s)
+               : launch<SMALL_CPL, 1, SMALL_STAGES, false>(a, s);
+  if (mt == 8 * LARGE_NN)
+    return launch<LARGE_CPL, LARGE_NN, LARGE_STAGES, false>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+int smem_of(int mt) {
+  if (mt == 8) return smem_bytes(1, SMALL_CPL / 4, SMALL_STAGES);
+  if (mt == 8 * LARGE_NN)
+    return smem_bytes(LARGE_NN, LARGE_CPL / 4, LARGE_STAGES);
+  return -1;
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // x [M, D] (dtype), q4 [D/2, F] int8, scale [D/group, F] bf16, out [M, F]
 // (dtype), part [ceil((D/2/group)/gps), M, F] fp32 scratch when that count
-// exceeds 1. bf16 x with group % 16 == 0 runs the tensor-core kernel, `mt`
-// its rows of x per warp (8 or 32; x 8-byte aligned, scale 8-byte
-// aligned); otherwise the scalar kernel, `mt` its rows of x per block (1,
-// 2, 4 or 8). Returns the cudaError_t of the launches (0 = success).
+// exceeds 1. With group % 16 == 0 bf16 x runs the bf16 tensor-core kernel
+// and fp32 x the TF32 one, `mt` their rows of x per warp or block (8 or
+// 32; x 16-byte aligned, q4 4-byte, scale 8-byte); otherwise the scalar
+// kernel, `mt` its rows of x per block (1, 2, 4 or 8). Returns the
+// cudaError_t of the launches (0 = success).
 extern "C" int emmax_int4_matmul(const void* x, const void* q4,
                                  const void* scale, void* part, void* out,
                                  int M, int D, int F, int group, int gps,
                                  int mt, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = ((D / 2) / group + gps - 1) / gps;
   cudaError_t err;
   if (dtype == emmax::kBFloat16 && group % 16 == 0) {
     tc::Args a;
@@ -550,8 +975,22 @@ extern "C" int emmax_int4_matmul(const void* x, const void* q4,
     a.F = F;
     a.group = group;
     a.gps = gps;
-    a.splits = ((D / 2) / group + gps - 1) / gps;
+    a.splits = splits;
     err = tc::dispatch(a, mt, s);
+  } else if (dtype == emmax::kFloat32 && group % 16 == 0) {
+    tf32::Args a;
+    a.x = static_cast<const float*>(x);
+    a.q4 = static_cast<const int8_t*>(q4);
+    a.scale = static_cast<const __nv_bfloat16*>(scale);
+    a.part = static_cast<float*>(part);
+    a.out = static_cast<float*>(out);
+    a.M = M;
+    a.D = D;
+    a.F = F;
+    a.group = group;
+    a.gps = gps;
+    a.splits = splits;
+    err = tf32::dispatch(a, mt, s);
   } else if (dtype == emmax::kBFloat16) {
     err = scalar::dispatch_m<__nv_bfloat16>(x, q4, scale, part, out, M, D,
                                             F, group, gps, mt, s);
@@ -564,8 +1003,11 @@ extern "C" int emmax_int4_matmul(const void* x, const void* q4,
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory (bytes) of the tensor-core kernel's blocks at
-// `mt` rows of x per warp (8 or 32); -1 otherwise.
-extern "C" int emmax_int4_matmul_smem_bytes(int mt) {
-  return tc::smem_of(mt);
+// Dynamic shared memory (bytes) of a tensor-core kernel's blocks at `mt`
+// rows of x per warp or block (8 or 32): the bf16 kernel for dtype
+// bfloat16, the TF32 one for float32; -1 otherwise.
+extern "C" int emmax_int4_matmul_smem_bytes(int mt, int dtype) {
+  if (dtype == emmax::kBFloat16) return tc::smem_of(mt);
+  if (dtype == emmax::kFloat32) return tf32::smem_of(mt);
+  return -1;
 }

@@ -41,14 +41,16 @@ def _cast(t: torch.Tensor, dtype, device) -> torch.Tensor:
 def _stack(sd: Mapping[str, Any], fmt: str, n: int, dtype, device,
            transpose: bool = False) -> torch.Tensor:
     """``n`` per-layer tensors stacked into one ``[n, ...]`` leaf, written
-    layer by layer into the leaf (so only it and one layer are held)."""
+    layer by layer into the leaf (so only it and one layer are held). A
+    layer moves to the leaf's device as it is stored, and is transposed
+    and cast there by one copy (a transposed copy is slow on the host)."""
     first = sd[fmt.format(0)]
     shape = first.shape[::-1] if transpose else first.shape
     out = torch.empty((n, *shape), dtype=dtype if first.is_floating_point()
                       and dtype is not None else first.dtype, device=device)
     for i in range(n):
-        t = sd[fmt.format(i)].detach()
-        out[i] = (t.T if transpose else t).to(out.dtype)
+        t = sd[fmt.format(i)].detach().to(out.device)
+        out[i].copy_(t.T if transpose else t)
     return out
 
 

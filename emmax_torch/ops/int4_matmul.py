@@ -19,13 +19,15 @@ for CUDA tensors and runs the plain version (dequantize, then matmul) for
 CPU tensors. A stacked ``{"q4", "scale", "layer"}`` weight is read through
 the view ``q4[layer]``: no per-layer copy is made.
 
-bf16 x (with ``group % 16 == 0``, every shape the quantizer gives a
-model) runs on the tensor cores: each nibble becomes its exact bf16
-level ``q + 0.5``, each group's products are summed in fp32 per nibble
-plane and scaled per column, as JAX's kernel does; the plain version
-rounds the dequantized weight to bf16 first. fp32 x runs the scalar
-kernel, with fp32 FMAs. Each launch also counts under x's dtype
-(``KERNEL.launches_by``).
+With ``group % 16 == 0`` (every shape the quantizer gives a model) both
+dtypes run on the tensor cores: each nibble becomes its exact level
+``q + 0.5``, each group's products are summed in fp32 per nibble plane
+and scaled per column, as JAX's kernel does. bf16 x takes bf16 MMAs (the
+plain version rounds the dequantized weight to bf16 first); fp32 x takes
+two TF32 MMAs, x split into big + small parts, which keeps fp32's
+accuracy (JAX's Pallas kernel rounds x to bf16; the port holds fp32 x to
+JAX's XLA route instead). Other groups run a scalar kernel with fp32
+FMAs. Each launch also counts under x's dtype (``KERNEL.launches_by``).
 """
 
 from __future__ import annotations
@@ -192,16 +194,24 @@ def int4_matmul_reference(x2d: torch.Tensor, q4: torch.Tensor,
 
 
 def _launch_shape(M: int, F: int, g_half: int, sm_count: int,
-                  tensor_cores: bool = False):
+                  tensor_cores: bool = False, tf32: bool = False):
     """(rows of x per block or warp, groups per split, splits) for the
     kernel's grid: the groups are split (split-K) until the units fill the
     card, which decode's few column tiles alone do not.
 
     Scalar kernel: a block of 128 columns and ``mt`` rows of x is a unit,
-    about two per SM. Tensor cores: a warp is a unit, of 64 columns and 8
-    rows of x (M <= 8) or 32 columns and 32 rows, about ten per SM (the
-    fastest of the splits timed on an H100 at the Llama-2-7B shapes)."""
-    if tensor_cores:
+    about two per SM. bf16 tensor cores: a warp is a unit, of 64 columns
+    and 8 rows of x (M <= 8) or 32 columns and 32 rows, about ten per SM
+    (the fastest of the splits timed on an H100 at the Llama-2-7B shapes).
+    TF32 tensor cores (``tf32``, fp32 x): at M <= 8 the same warp units,
+    four neighbouring ones in a block sharing its 8 rows of x; above, a
+    block of 4 warps sharing 32 rows of x is a unit, of 128 columns, about
+    two per SM."""
+    if tensor_cores and tf32 and M > 8:
+        mt = 32
+        units = -(-F // 128) * -(-M // mt)
+        target = 2 * sm_count
+    elif tensor_cores:
         mt = 8 if M <= 8 else 32
         units = -(-F // (64 if mt == 8 else 32)) * -(-M // mt)
         target = 10 * sm_count
@@ -255,14 +265,17 @@ def int4_matmul_cuda(x2d: torch.Tensor, q4: torch.Tensor,
     out = torch.empty((M, F), dtype=x2d.dtype, device=x2d.device)
     if M == 0:
         return out
-    tensor_cores = x2d.dtype == torch.bfloat16 and group % 16 == 0
+    # bf16 x on the bf16 tensor-core kernel, fp32 x on the TF32 one; the
+    # scalar kernel only where the group is not a multiple of 16
+    tensor_cores = group % 16 == 0
     if tensor_cores and (q4.data_ptr() % 4 or scale.data_ptr() % 8):
         raise ValueError("int4_matmul_cuda: q4 must be 4-byte and scale "
                          "8-byte aligned")
     if tensor_cores and x2d.data_ptr() % 16:
-        x2d = x2d.clone()       # the kernel copies x in aligned 8-byte runs
+        x2d = x2d.clone()       # the kernels copy x in aligned runs
     mt, gps, splits = _launch_shape(M, F, D2 // group, _sm_count(x2d.device),
-                                    tensor_cores)
+                                    tensor_cores,
+                                    tf32=x2d.dtype == torch.float32)
     part = (torch.empty((splits, M, F), dtype=torch.float32,
                         device=x2d.device) if splits > 1 else None)
     KERNEL.launch(x2d.data_ptr(), q4.data_ptr(), scale.data_ptr(),

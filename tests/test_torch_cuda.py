@@ -380,8 +380,8 @@ def test_autograd_function_launches_the_backward_kernels(dev):
         _close(t.grad / 2, r.grad, 1e-4)           # two backward passes
 
 
-INT4 = [  # (M, D, F, group); D 80 shrinks the group to 8: bf16 x then
-    # runs the scalar kernel, as fp32 x does
+INT4 = [  # (M, D, F, group); D 80 shrinks the group to 8: both dtypes
+    # then run the scalar kernel, the others the tensor-core kernels
     (1, 256, 200, 128), (3, 64, 36, 32), (17, 128, 384, 64),
     (130, 512, 260, 128), (1, 11008, 512, 128), (5, 80, 36, 128),
 ]
@@ -450,6 +450,59 @@ def test_int4_tensor_cores_match_plain(dev, case):
     odd = buf[1:].view(M, D)
     odd.copy_(x)
     assert torch.equal(im.int4_matmul_cuda(odd, q4, scale), got)
+
+
+# fp32 x on the TF32 tensor cores at Emma-X's weights (D, F): wq, w_gate,
+# w_down and the lm_head (F 32064: its column blocks end ragged), at M 1
+# (decode), 13 and 43 (the verifier's chunks) and 448 (the prefill)
+INT4_TF32 = [(M, D, F) for M in (1, 13, 43, 448)
+             for D, F in ((4096, 4096), (4096, 11008), (11008, 4096),
+                          (4096, 32064))]
+
+
+@pytest.mark.parametrize("case", INT4_TF32, ids=[str(c) for c in INT4_TF32])
+def test_int4_tf32_matches_plain(dev, case):
+    """The TF32 kernel (exact levels, x split into big + small) on a
+    stacked view against the plain version at 1e-4 and against the exact
+    product within 1e-5 of its largest value (fp32 sums); one launch,
+    counted under float32; the same bits on a rerun and from an x that
+    does not start on a 16-byte boundary (the wrapper copies it)."""
+    from emmax_torch.ops import int4_matmul as im
+
+    M, D, F = case
+    g = torch.Generator(dev).manual_seed(5)
+    q4 = torch.randint(-128, 128, (2, D // 2, F), dtype=torch.int8,
+                       device=dev, generator=g)
+    scale = (torch.rand((2, D // 128, F), device=dev, generator=g)
+             * 0.02).bfloat16()
+    x = torch.randn(M, D, device=dev, generator=g)
+    before = im.KERNEL.launches_by.get("float32", 0)
+    got = im.int4_matmul(x, {"q4": q4, "scale": scale, "layer": 1})
+    assert im.KERNEL.launches_by["float32"] == before + 1
+    assert got.dtype == torch.float32
+    _close(got, im.int4_matmul_reference(x, q4[1], scale[1]), 1e-4)
+    exact = _int4_exact(x, q4[1], scale[1])
+    assert (got.double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+    assert torch.equal(im.int4_matmul_cuda(x, q4[1], scale[1]), got)
+    buf = torch.empty(M * D + 1, device=dev)
+    odd = buf[1:].view(M, D)
+    odd.copy_(x)
+    assert torch.equal(im.int4_matmul_cuda(odd, q4[1], scale[1]), got)
+
+
+def test_int4_fp32_groups_off_the_tensor_cores_match_plain(dev):
+    """A group that is not a multiple of 16 (D 72 gives 4, D 80 gives 8):
+    the scalar kernel still serves it, in fp32 within 1e-4 of plain."""
+    from emmax_torch.ops import int4_matmul as im
+
+    g = torch.Generator(dev).manual_seed(6)
+    for M, D, F in ((3, 72, 40), (9, 80, 36)):
+        qw = im.quantize_weight_int4(
+            torch.randn(D, F, device=dev, generator=g) * 0.02)
+        assert (D // qw["scale"].shape[0]) % 16
+        x = torch.randn(M, D, device=dev, generator=g)
+        _close(im.int4_matmul(x, qw),
+               im.int4_matmul_reference(x, qw["q4"], qw["scale"]), 1e-4)
 
 
 # the zoo's int4 decoder weights (M, D, F), each at decode (M 1) and at

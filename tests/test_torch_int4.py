@@ -95,3 +95,8 @@ def test_launch_shape_covers_every_group():
         mt, gps, splits = t4._launch_shape(M, F, g_half, sm_count=132)
         assert mt in (1, 2, 4, 8) and gps * splits >= g_half
         assert gps * (splits - 1) < g_half     # no empty split
+        # fp32 x on the TF32 tensor cores: blocks of 8 or 32 rows of x
+        mt, gps, splits = t4._launch_shape(M, F, g_half, sm_count=132,
+                                           tensor_cores=True, tf32=True)
+        assert mt in (8, 32) and gps * splits >= g_half
+        assert gps * (splits - 1) < g_half

@@ -255,14 +255,25 @@ def test_tensor_core_int4_rounding_matches_plain_bf16(case):
     assert _rel(_bf16(tot), plain.float().numpy()) <= BF16_RTOL
 
 
-@pytest.mark.parametrize("M,F,g_half", [(1, 4096, 16), (1, 32064, 16),
-                                        (6, 11008, 16), (1, 4096, 43),
-                                        (48, 11008, 16), (448, 32064, 16),
-                                        (3, 64, 1)])
-def test_tensor_core_launch_shape_covers_every_group(M, F, g_half):
-    """The tensor-core kernel's split-K: rows of x per warp 8 (M <= 8) or
-    32, every group in one split, no split empty."""
+LAUNCH = [(1, 4096, 16), (1, 32064, 16), (6, 11008, 16), (1, 4096, 43),
+          (48, 11008, 16), (448, 32064, 16), (3, 64, 1)]
+# the TF32 kernel's (fp32 x) cases: Emma-X's weights at M 1 / 13 / 43 /
+# 448, D 11008's 43 groups a plane, a narrow F
+LAUNCH_TF32 = [(1, 4096, 16), (1, 32064, 16), (1, 4096, 43),
+               (13, 11008, 16), (43, 4096, 43), (448, 32064, 16),
+               (448, 4096, 16), (3, 64, 1)]
+
+
+@pytest.mark.parametrize(
+    "M,F,g_half,tf32",
+    [c + (False,) for c in LAUNCH] + [c + (True,) for c in LAUNCH_TF32],
+    ids=["-".join(map(str, c)) for c in LAUNCH]
+    + ["tf32-" + "-".join(map(str, c)) for c in LAUNCH_TF32])
+def test_tensor_core_launch_shape_covers_every_group(M, F, g_half, tf32):
+    """The tensor-core kernels' split-K: rows of x per warp (bf16) or
+    block (TF32) 8 (M <= 8) or 32, every group in one split, no split
+    empty."""
     mt, gps, splits = t4._launch_shape(M, F, g_half, sm_count=132,
-                                       tensor_cores=True)
+                                       tensor_cores=True, tf32=tf32)
     assert mt == (8 if M <= 8 else 32)
     assert gps * splits >= g_half and gps * (splits - 1) < g_half
