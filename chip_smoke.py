@@ -286,6 +286,32 @@ Phases, each raising on failure (the script then exits non-zero):
    (a), non-zero in (b)); frame, admission and burst ms of both runs.
    The group is destroyed at the end.
 
+13b. ``tensor``: the decoder split over the ``tensor`` axis
+   (``emmax_torch/parallel/tensor.py``) on two ranks sharing the one
+   card. First, in this process, the two kernels at the split's shapes:
+   the bf16 flash forward at the serving prefill with 16 heads (one
+   rank's 32 / 2) and the paged kernel with 16 KV heads (int8 pages).
+   Then two spawned processes join a gloo group of their own (NCCL
+   refuses two ranks on one device; gloo stages CUDA tensors through the
+   host) and the (1, 1, 2) mesh on "cuda" (and one on "cpu"): (a) the
+   tiny config (fp32, 4 heads, 2 a rank) through ``ServingEngine``,
+   ``PagedServingEngine(paged_attn="kernel")``, ``ContinuousServingEngine``
+   and ``SpeculativeEngine`` on the card and on the CPU mesh, the same
+   tokens (and steps); (b) full-width Emma-X in bf16 (seed 0; rank 0 runs
+   the unsplit prefill on the whole tree first, then each rank in turn
+   builds the tree and keeps its blocks): one prefill of the serving
+   cell's prompt and frame with the split's gates (32 bf16 flash launches
+   a rank, all at 16 heads; no byte of a decoder weight gathered over
+   ``tensor``; 2 x 32 + 2 = 66 sums over ``tensor``; each rank's decoder
+   weights, norms aside, and KV cache exactly half the unsplit bytes),
+   the last position's logits within ``TENSOR_RTOL`` of the unsplit
+   prefill's with the same argmax, and the same bits on both ranks; then
+   ``EmmaXVLA(..., mesh=)`` -> ``generate_actions``, a warm-up and a timed
+   request of ``TENSOR_NEW`` tokens, the same tokens, text and actions on
+   both ranks. Request ms are printed but are not speed figures: two
+   ranks share one card and every sum crosses the host. One ``tensor``
+   line.
+
 14. ``zoo``: the Prismatic backbones beyond Emma-X's (``models/
    materialize.py``) at full width and depth on seeded random weights made
    on the card, each model freed before the next is built (peak bytes
@@ -308,7 +334,7 @@ Phases, each raising on failure (the script then exits non-zero):
    prefill and training shapes at D 80, int4 at Phi's and Mistral's
    weights). One JSON line.
 
-Phases 4b, 4c, 5b, 10b, 7, 7b, 11, 12, 12b, 12c, 13 and 14 run after phase 10 (4b and
+Phases 4b, 4c, 5b, 10b, 7, 7b, 11, 12, 12b, 12c, 13, 13b and 14 run after phase 10 (4b and
 4c with phase 4, 5b with phase 5); ``--kernels-only`` skips them. The line
 before the last is the card's name and power limit; the one before it a
 JSON object with one entry per kernel; the last line is
@@ -446,6 +472,16 @@ EVAL_TASK_STEPS, EVAL_NEW, EVAL_LOOP_STEPS = 3, 32, 2
 EVAL_PAGED_MODES = ("gather2", "pagescan", "poolmask")
 EVAL_PAGED_NEW = 16
 EVAL_PAGED_RMSE = {"gather2": 1e-6, "pagescan": 5e-2, "poolmask": 5e-2}
+# tensor: the decoder split over TENSOR_WORLD ranks on the one card; the
+# timed request's new tokens; the split prefill's last logits against the
+# unsplit prefill's, of the largest |logit|: two bf16 routes through 32
+# random layers sit 2.1-2.3% apart (the kernel against the plain path),
+# and the split rounds each row-parallel sum once more, so 5e-2 leaves
+# about twice that; the argmax must agree. TENSOR_TIMEOUT bounds a rank's
+# silence before both are killed
+TENSOR_WORLD, TENSOR_NEW = 2, 24
+TENSOR_RTOL = 5e-2
+TENSOR_TIMEOUT = 600.0
 
 
 T0 = time.perf_counter()
@@ -4655,6 +4691,395 @@ def multigpu_phase(dev, kernels, serving_kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- tensor --
+
+def _tensor_tiny(dev, mesh, cpu_mesh) -> dict:
+    """The tiny config split over ``tensor`` through the four engines on
+    the card (``mesh``) and on the CPU (``cpu_mesh``): the same tokens
+    (and the speculative engine's steps) on both, and the split's KV
+    heads in each engine's cache or pool. Returns the card's run and its
+    launches of the flash forward and the paged kernel."""
+    from emmax_torch.models.load import load
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.ops import paged_attention as pa
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.parallel.tensor import decoder_split
+    from emmax_torch.serving.continuous import ContinuousServingEngine
+    from emmax_torch.serving.engine import (GenerateOptions, ServingEngine,
+                                            encode_frame)
+    from emmax_torch.serving.paged import PagedServingEngine
+    from emmax_torch.serving.speculative import SpeculativeEngine
+
+    cfg, params, tok, _, _ = load("tiny", dtype=torch.float32, device="cpu",
+                                  seed=3)
+    rng = np.random.default_rng(13)
+    patches = encode_frame(params, cfg, {
+        n: torch.from_numpy(rng.normal(size=(1, v.img_size, v.img_size, 3))
+                            .astype(np.float32)) for n, v in cfg.vision})
+    prompts = [f"In: stack the {w} cups\nOut:"
+               for w in ("red", "blue", "green")]
+    opts = GenerateOptions(eos_id=tok.eos_id)
+    runs = {}
+    for where, device, m in (("cpu", "cpu", cpu_mesh), ("card", dev, mesh)):
+        for k in (fa.KERNEL, pa.KERNEL):
+            k.reset_counts()
+        blocks = shard_params(params, m)
+        split = decoder_split(blocks["llm"], cfg.llm, m).t
+        vision = {"patches": patches.to(device)}
+        out = {"split": split}
+        eng = ServingEngine(cfg, blocks, tok, options=opts, device=device,
+                            mesh=m)
+        out["plain"] = eng.generate_ids([prompts[0]], vision,
+                                        max_new_tokens=16)[0].tolist()
+        spec = SpeculativeEngine(cfg, blocks, tok, options=opts, draft_k=4,
+                                 device=device, mesh=m)
+        out["speculative"] = spec.generate_ids(
+            [prompts[0]], vision, max_new_tokens=16)[0].tolist()
+        out["speculative_steps"] = spec.last_steps
+        for name, make in (
+                ("paged kernel", lambda: PagedServingEngine(
+                    cfg, blocks, tok, num_slots=2, n_pages=24, page_size=16,
+                    max_pages_per_slot=8, burst=4, paged_attn="kernel",
+                    device=device, mesh=m)),
+                ("slot pool", lambda: ContinuousServingEngine(
+                    cfg, blocks, tok, num_slots=2, cache_len=256, burst=4,
+                    device=device, mesh=m))):
+            eng = make()
+            heads = eng.pool["k"].shape[0 if name == "paged kernel" else 3]
+            rids = [eng.submit(p, vision, max_new_tokens=12)
+                    for p in prompts]
+            done = eng.run_until_complete()
+            out[name] = [list(map(int, done[r])) for r in rids]
+            out[f"{name} kv heads"] = int(heads)
+        runs[where] = out
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in (fa.KERNEL, pa.KERNEL)}
+    if runs["card"] != runs["cpu"]:
+        raise AssertionError(f"tensor tiny: card {runs['card']} != CPU "
+                             f"{runs['cpu']}")
+    want = cfg.llm.n_kv_heads // TENSOR_WORLD
+    if (runs["card"]["split"] != TENSOR_WORLD
+            or runs["card"]["paged kernel kv heads"] != want
+            or runs["card"]["slot pool kv heads"] != want
+            or not all(launches.values())):
+        raise AssertionError(f"tensor tiny: not split {runs['card']} or a "
+                             f"kernel not launched {launches}")
+    return runs["card"], launches
+
+
+def _decoder_bytes(llm) -> tuple:
+    """(bytes of the decoder's stacked layer leaves, of their norms)."""
+    layers = llm["layers"]
+    total = sum(t.numel() * t.element_size() for t in layers.values())
+    norms = sum(layers[k].numel() * layers[k].element_size()
+                for k in ("attn_norm", "mlp_norm"))
+    return total, norms
+
+
+def _tensor_prefill(dev, cfg, params, tok, prompt, pixels, mesh) -> dict:
+    """One prefill of the serving cell into a cache of its engine's size
+    (the prompt's bucket, the patches, ``MAX_NEW``): the last position's
+    fp32 logits, and what the split counts in the decoder's part (the
+    embedding, the layers and the logits): sums and weight bytes
+    gathered over ``tensor``, the flash forward's launches by dtype and
+    their heads, the cache's and the decoder weights' bytes."""
+    from emmax_torch.models.llama import embed_tokens, init_kv_cache
+    from emmax_torch.models.vlm import fuse_multimodal, llm_apply
+    from emmax_torch.ops import flash_attention as fa
+    from emmax_torch.parallel import tensor as ptensor
+    from emmax_torch.serving.engine import (ServingEngine, _round_up,
+                                            encode_frame)
+
+    eng = ServingEngine(cfg, params, tok, device=dev, mesh=mesh)
+    ids, mask = eng._prepare([prompt])
+    llm = params["llm"]
+    split = ptensor.decoder_split(llm, cfg.llm, mesh)
+    cache = init_kv_cache(cfg.llm, 1, _round_up(cfg.num_patches
+                                                + ids.shape[1] + MAX_NEW),
+                          dtype=llm["embed"].dtype, device=dev,
+                          split=split.t)
+    with torch.inference_mode():
+        patches = encode_frame(params, cfg, pixels, mesh=mesh)
+        torch.cuda.synchronize()
+        heads = []
+        launch = fa.KERNEL.launch
+
+        def recorded(*args, **kw):
+            heads.append(args[7])               # B, H, Lq, S, D from 6
+            return launch(*args, **kw)
+
+        fa.KERNEL.reset_counts()
+        ptensor.reset_counts()
+        fa.KERNEL.launch = recorded
+        try:
+            embeds, fmask, _, positions = fuse_multimodal(
+                patches, embed_tokens(llm, ids, mesh), mask)
+            logits, _ = llm_apply(llm, cfg.llm, embeds, mask=fmask,
+                                  positions=positions, kv_cache=cache,
+                                  mesh=mesh)
+            torch.cuda.synchronize()
+        finally:
+            del fa.KERNEL.launch                # the class's method again
+    weights, norms = _decoder_bytes(llm)
+    return {"split": split.t, "logits": logits[0, -1].float().cpu(),
+            "sums": ptensor.counts["sums"],
+            "gathered_bytes": ptensor.counts["gathered_bytes"],
+            "flash_by_dtype": dict(fa.KERNEL.launches_by),
+            "flash_heads": sorted(set(heads)),
+            "cache_bytes": sum(cache[k].numel() * cache[k].element_size()
+                               for k in ("k", "v")),
+            "cache_shape": list(cache["k"].shape),
+            "decoder_bytes": weights, "norm_bytes": norms}
+
+
+def _tensor_full(dev, mesh, rank) -> dict:
+    """Full-width Emma-X (bf16, seed 0) split over the ranks: rank 0's
+    unsplit prefill on the whole tree, each rank's blocks made in turn
+    (one whole tree at a time on the card), the split prefill and two
+    ``generate_actions`` requests (``tensor_phase``)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from emmax_torch.models.load import load
+    from emmax_torch.models.vla import EmmaXVLA
+    from emmax_torch.ops.image import preprocess_for_towers
+    from emmax_torch.parallel import shard_params
+
+    frame = np.random.default_rng(7).integers(0, 256, (256, 256, 3),
+                                              dtype=np.uint8)
+    out, blocks = {}, None
+    for turn in range(TENSOR_WORLD):
+        if turn == rank:
+            t0 = time.perf_counter()
+            cfg, params, tok, transforms, family = load(
+                MODEL_ID, dtype=torch.bfloat16, device="cuda", seed=0)
+            prompt = EmmaXVLA(cfg, params, tok, transforms,
+                              llm_family=family, device=dev).get_prompt(
+                TASK, gripper_position=(128, 96))
+            pixels = preprocess_for_towers(
+                torch.from_numpy(frame[None]).to(dev), transforms)
+            if rank == 0:
+                out["unsplit"] = _tensor_prefill(dev, cfg, params, tok,
+                                                 prompt, pixels, None)
+            blocks = shard_params(params, mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            out["build_s"] = time.perf_counter() - t0
+        dist.barrier()
+    split = _tensor_prefill(dev, cfg, blocks, tok, prompt, pixels, mesh)
+    logits = split.pop("logits")
+    out["split"] = split
+    out["logits_sha256"] = hashlib.sha256(
+        logits.numpy().tobytes()).hexdigest()
+    out["argmax"] = int(logits.argmax())
+    if rank == 0:
+        ref = out["unsplit"].pop("logits")
+        out["logits_rel_err"] = float((logits - ref).abs().max()
+                                      / ref.abs().max())
+        out["unsplit_argmax"] = int(ref.argmax())
+    vla = EmmaXVLA(cfg, blocks, tok, transforms, llm_family=family,
+                   device=dev, mesh=mesh)
+    ids = []
+    generate = vla.engine.generate_ids
+
+    def recorded(*args, **kw):
+        out = generate(*args, **kw)
+        ids.append(out[0].tolist())
+        return out
+
+    vla.engine.generate_ids = recorded
+    requests = []
+    for _ in range(2):                  # a warm-up, then the timed one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actions, text = vla.generate_actions(frame, prompt, type="act",
+                                             max_new_tokens=TENSOR_NEW)
+        torch.cuda.synchronize()
+        if not all(a.shape == (7,) and np.isfinite(a).all()
+                   for a in actions):
+            raise AssertionError(f"tensor: bad actions {actions!r}")
+        requests.append({"request_ms": (time.perf_counter() - t0) * 1e3,
+                         "tokens": ids[-1], "text": text,
+                         "actions": [a.tolist() for a in actions],
+                         **{k: v for k, v in vla.engine.last_timings.items()
+                            if k.endswith("_ms")}})
+    out["requests"] = requests
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _tensor_rank(rank: int, port: int, conn) -> None:
+    """One rank of ``tensor_phase``: its own gloo group over the two
+    processes, the (1, 1, 2) meshes, then the tiny engines and the
+    full-width runs; the result (or the traceback) goes back on
+    ``conn``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=TENSOR_WORLD, rank=rank)
+        try:
+            from emmax_torch.parallel import make_mesh
+
+            shape = (1, 1, TENSOR_WORLD)
+            mesh = make_mesh(shape, device_type="cuda")
+            cpu_mesh = make_mesh(shape, device_type="cpu")
+            out = {"rank": rank, "backend": dist.get_backend(),
+                   "world_size": dist.get_world_size(),
+                   "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+            t0 = time.perf_counter()
+            out["tiny"], out["tiny_launches"] = _tensor_tiny(dev, mesh,
+                                                             cpu_mesh)
+            out["tiny_s"] = time.perf_counter() - t0
+            out["full"] = _tensor_full(dev, mesh, rank)
+        finally:
+            dist.destroy_process_group()
+        conn.send(("ok", out))
+    except BaseException:
+        conn.send(("err", traceback.format_exc()))
+
+
+def _tensor_gates(cfg, ranks) -> None:
+    """The split's gates over both ranks' results (``tensor_phase``)."""
+    llm = cfg.llm
+    t = TENSOR_WORLD
+    r0 = ranks[0]["full"]
+    unsplit = r0["unsplit"]
+    for r in ranks:
+        f, s = r["full"], r["full"]["split"]
+        problems = []
+        if r["backend"] != "gloo" or r["world_size"] != t:
+            problems.append("group")
+        if s["split"] != t or s["flash_by_dtype"] != {
+                "bfloat16": llm.n_layers} or s["flash_heads"] != [
+                llm.n_heads // t]:
+            problems.append("flash launches / heads")
+        if s["gathered_bytes"] != 0 or s["sums"] != 2 * llm.n_layers + 2:
+            problems.append("collectives")
+        if (s["cache_bytes"] * t != unsplit["cache_bytes"]
+                or (s["decoder_bytes"] - s["norm_bytes"]) * t
+                != unsplit["decoder_bytes"] - unsplit["norm_bytes"]
+                or s["norm_bytes"] != unsplit["norm_bytes"]):
+            problems.append("bytes")
+        for key in ("logits_sha256", "argmax"):
+            if f[key] != r0[key]:
+                problems.append(f"{key} differs from rank 0's")
+        for a, b in zip(f["requests"], r0["requests"]):
+            if any(a[k] != b[k] for k in ("tokens", "text", "actions")):
+                problems.append("request tokens differ from rank 0's")
+        if r["tiny"] != ranks[0]["tiny"]:
+            problems.append("tiny tokens differ from rank 0's")
+        if problems:
+            raise AssertionError(f"tensor rank {r['rank']}: {problems}: "
+                                 f"{json.dumps(s)}")
+    if unsplit["split"] != 1 or unsplit["flash_by_dtype"] != {
+            "bfloat16": llm.n_layers} or unsplit["flash_heads"] != [
+            llm.n_heads]:
+        raise AssertionError(f"tensor unsplit prefill: {unsplit}")
+    if not (r0["logits_rel_err"] <= TENSOR_RTOL
+            and r0["argmax"] == r0["unsplit_argmax"]):
+        raise AssertionError(f"tensor: split logits {r0['logits_rel_err']} "
+                             f"of the largest from the unsplit prefill "
+                             f"(tol {TENSOR_RTOL}), argmax {r0['argmax']} "
+                             f"against {r0['unsplit_argmax']}")
+
+
+def tensor_phase(dev) -> dict:
+    """Phase 13b: the decoder split over ``tensor`` on two ranks sharing
+    the one card (the module docstring): the kernels at the split's
+    shapes here, then the two spawned ranks and their gates."""
+    import multiprocessing
+    import socket
+
+    from emmax_torch.models.vlm import emma_x_vlm_config
+    from emmax_torch.vla.tokenizer import load_tokenizer
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = emma_x_vlm_config()
+    llm = cfg.llm
+    n_tok, bucket, Lq, S = prefill_shape(load_tokenizer(None),
+                                         cfg.num_patches)
+    gen = torch.Generator(dev)
+    gen.manual_seed(4)
+    H = llm.n_heads // TENSOR_WORLD
+    lens = "/".join(str(n) for n in PAGED_LENGTHS)
+    kernels = {
+        "flash_fwd": check_flash(
+            dev, gen, f"llama prefill per rank (tensor {TENSOR_WORLD}) B1 "
+            f"Lq{Lq} S{S} H{H} D{llm.head_dim} causal pad{bucket - n_tok}",
+            1, Lq, S, H, llm.head_dim, True, bucket - n_tok, torch.bfloat16),
+        "paged_attention": check_paged(
+            dev, gen, f"B6 KV{llm.n_kv_heads // TENSOR_WORLD} G1 hd128 ps128 "
+            f"MP6 len {lens} (per rank, tensor {TENSOR_WORLD})",
+            llm.n_kv_heads // TENSOR_WORLD, 1, torch.int8)}
+    for r in kernels.values():
+        log("kernel " + json.dumps(r))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = multiprocessing.get_context("spawn")
+    conns, procs = [], []
+    for rank in range(TENSOR_WORLD):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_tensor_rank, args=(rank, port, child),
+                           daemon=True)
+        proc.start()
+        child.close()
+        conns.append(parent)
+        procs.append(proc)
+    ranks = [None] * TENSOR_WORLD
+    try:
+        deadline = time.monotonic() + TENSOR_TIMEOUT
+        for rank, conn in enumerate(conns):
+            while not conn.poll(0.5):
+                dead = [r for r, p in enumerate(procs) if not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(f"tensor ranks {dead} died or timed "
+                                       f"out")
+            status, value = conn.recv()
+            if status != "ok":
+                raise RuntimeError(f"tensor rank {rank} failed:\n{value}")
+            ranks[rank] = value
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+        for conn in conns:
+            conn.close()
+    _tensor_gates(cfg, ranks)
+    r0 = ranks[0]["full"]
+    out = {"group": "gloo, opened by the phase (NCCL refuses two ranks on "
+                    "one device)",
+           "mesh": ranks[0]["mesh"], "kernels": kernels,
+           "tiny": ranks[0]["tiny"], "tiny_s": ranks[0]["tiny_s"],
+           "tiny_launches_per_rank": [r["tiny_launches"] for r in ranks],
+           "split": r0["split"], "unsplit": r0["unsplit"],
+           "logits_rel_err": r0["logits_rel_err"], "argmax": r0["argmax"],
+           "requests_ms_note": "two ranks share one card and every sum "
+                               "crosses the host: not speed figures",
+           "requests": [{k: v for k, v in q.items()
+                         if k not in ("text", "actions")}
+                        for q in r0["requests"]],
+           "build_s": [r["full"]["build_s"] for r in ranks],
+           "peak_gb": [r["full"]["peak_gb"] for r in ranks]}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------------- zoo --
 
 def zoo_towers(dev, fa_kernel) -> list:
@@ -5151,6 +5576,9 @@ def main(argv) -> int:
     log_phase("multigpu_phase")
     multi = multigpu_phase(dev, kernels, serving_kernels)
     log("multigpu " + json.dumps(multi))
+    log_phase("tensor_phase")
+    tensor = tensor_phase(dev)
+    log("tensor " + json.dumps(tensor))
     log_phase("zoo_phase")
     zoo = zoo_phase(dev, kernels)
     mstep = multi["align7b"]["launches_per_step"]
@@ -5199,6 +5627,14 @@ def main(argv) -> int:
     fp32_int4 = ckpt["hf_int4_fp32"]
     zoo_of = zoo_entries(zoo)
 
+    def split_entry(name, launches, path):
+        """The tensor phase's row of a kernel at one rank's shape."""
+        rec = tensor["kernels"][name]
+        return {**{k: rec[k] for k in ("shape", "ms", "eager_ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")},
+                "launches": launches, "launches_path": path}
+
     def rlds_launches(name):
         """(GCOT loop, RLDS loop) launches of the ``rlds`` phase."""
         return [rl["gcot"]["launches"][name], rl["vla"]["launches"][name]]
@@ -5236,6 +5672,9 @@ def main(argv) -> int:
                       r["flash_fwd"] for r in fp32_int4["launches_by_timed"]]},
               launches_rlds_gcot_vla=rlds_launches("flash_fwd"),
               launches_eval=ev["launches_eval"],
+              tensor_split=split_entry("flash_fwd", tensor["split"][
+                  "flash_by_dtype"]["bfloat16"],
+                  "the split 7B prefill, per rank (H16)"),
               zoo=zoo_of["flash_fwd"]),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
               "emmax_tpu/ops/flash_attention.py:395", step["flash_bwd_dq"],
@@ -5319,7 +5758,11 @@ def main(argv) -> int:
                            "max_abs_err")},
               gqa={k: paged_kernels[2][k] for k in
                    ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                    "max_abs_err")}),
+                    "max_abs_err")},
+              tensor_split=split_entry(
+                  "paged_attention", tensor["tiny_launches_per_rank"][0][
+                      "paged_attention"],
+                  "the tiny paged kernel engine at tensor 2, rank 0")),
     ]
     log_phase("report")
     print(json.dumps({"kernels": entries}))

@@ -16,12 +16,15 @@ nothing: TIMM adds positions to the patches only).
 Each leaf is built straight in the target ``dtype`` (bf16 -> bf16 is
 exact, fp32 -> bf16 rounds to nearest even, as ``jnp.asarray`` does) and
 placed on ``device``; no float32 copy of a whole tree is made. Only a
-position table that needs resizing goes through float32.
+position table that needs resizing goes through float32. A Llama
+decoder's matmul weights and lm_head can be quantized as they are
+converted (``quantize``): each layer is transposed, cast and quantized on
+``device``, so no dense stacked leaf is ever built.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -38,32 +41,66 @@ def _cast(t: torch.Tensor, dtype, device) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
+def quantize_stacked(n: int, layer: Callable[[int], torch.Tensor],
+                     quantize: Callable) -> Dict[str, torch.Tensor]:
+    """``quantize`` of a stacked ``[n, ...]`` leaf given layer by layer
+    (``layer(i)``, contiguous, on the device that quantizes), into stacked
+    outputs: a weight's quantization is per layer, so the bytes are those
+    of quantizing the whole leaf."""
+    out = {}
+    for i in range(n):
+        for k, v in quantize(layer(i)).items():
+            if k not in out:
+                out[k] = v.new_empty((n,) + v.shape)
+            out[k][i] = v
+    return out
+
+
 def _stack(sd: Mapping[str, Any], fmt: str, n: int, dtype, device,
-           transpose: bool = False) -> torch.Tensor:
+           transpose: bool = False, quantize: Optional[Callable] = None):
     """``n`` per-layer tensors stacked into one ``[n, ...]`` leaf, written
     layer by layer into the leaf (so only it and one layer are held). A
     layer moves to the leaf's device as it is stored, and is transposed
-    and cast there by one copy (a transposed copy is slow on the host)."""
+    and cast there by one copy (a transposed copy is slow on the host).
+
+    With ``quantize`` (a ``serving.quant`` weight quantizer) each layer is
+    copied the same way into one contiguous layer buffer on ``device`` and
+    quantized there (:func:`quantize_stacked`): the result is the
+    quantized leaf's dict, and no dense stacked leaf is built."""
     first = sd[fmt.format(0)]
     shape = first.shape[::-1] if transpose else first.shape
-    out = torch.empty((n, *shape), dtype=dtype if first.is_floating_point()
-                      and dtype is not None else first.dtype, device=device)
+    dt = (dtype if first.is_floating_point() and dtype is not None
+          else first.dtype)
+
+    def copy(i, dst):
+        t = sd[fmt.format(i)].detach().to(dst.device)
+        return dst.copy_(t.T if transpose else t)
+
+    if quantize is not None:
+        buf = torch.empty(shape, dtype=dt, device=device)
+        return quantize_stacked(n, lambda i: copy(i, buf), quantize)
+    out = torch.empty((n, *shape), dtype=dt, device=device)
     for i in range(n):
-        t = sd[fmt.format(i)].detach().to(out.device)
-        out[i].copy_(t.T if transpose else t)
+        copy(i, out[i])
     return out
 
 
 # --- Llama -------------------------------------------------------------------
 
 def convert_hf_llama(sd: Mapping[str, Any], cfg: LlamaConfig,
-                     dtype=torch.float32, device="cpu") -> Params:
-    """HF ``LlamaForCausalLM.state_dict()`` -> llama param tree."""
+                     dtype=torch.float32, device="cpu",
+                     quantize: Optional[Callable] = None) -> Params:
+    """HF ``LlamaForCausalLM.state_dict()`` -> llama param tree; with
+    ``quantize`` its seven matmul weights and the lm_head quantized on
+    ``device`` (the module docstring)."""
     L, pre = cfg.n_layers, "model.layers.{}."
 
     def stack(name, transpose=False):
-        return _stack(sd, pre + name, L, dtype, device, transpose)
+        # the seven matmul weights are the transposed leaves
+        return _stack(sd, pre + name, L, dtype, device, transpose,
+                      quantize if transpose else None)
 
+    lm_head = _cast(sd["lm_head.weight"].T, dtype, device)
     return {
         "embed": _cast(sd["model.embed_tokens.weight"], dtype, device),
         "layers": {
@@ -78,7 +115,7 @@ def convert_hf_llama(sd: Mapping[str, Any], cfg: LlamaConfig,
             "w_down": stack("mlp.down_proj.weight", True),
         },
         "final_norm": _cast(sd["model.norm.weight"], dtype, device),
-        "lm_head": _cast(sd["lm_head.weight"].T, dtype, device),
+        "lm_head": lm_head if quantize is None else quantize(lm_head),
     }
 
 
@@ -430,9 +467,10 @@ def params_to_hf_sd(params, cfg, dtype=None) -> dict:
 
 
 def convert_hf_openvla_sd(sd: Mapping[str, Any], cfg, dtype=torch.float32,
-                          device="cpu") -> Params:
+                          device="cpu",
+                          quantize: Optional[Callable] = None) -> Params:
     """Flat OpenVLA-naming state dict -> param tree (the inverse of
-    :func:`params_to_hf_sd`)."""
+    :func:`params_to_hf_sd`); ``quantize`` as in :func:`convert_hf_llama`."""
     names = [name for name, _ in cfg.vision]
     vis_prefix = {"vision_backbone.featurizer.": names[0]}
     if len(names) > 1:
@@ -454,4 +492,5 @@ def convert_hf_openvla_sd(sd: Mapping[str, Any], cfg, dtype=torch.float32,
     return {"vision": vision,
             "projector": convert_projector(proj_sd, "projector.", dtype,
                                            device),
-            "llm": convert_hf_llama(llm_sub, cfg.llm, dtype, device)}
+            "llm": convert_hf_llama(llm_sub, cfg.llm, dtype, device,
+                                    quantize)}

@@ -25,11 +25,15 @@ The uncached path is the training path: each layer may be rematerialized
 memory-lean ``chunked_ce_loss_and_preds``) are here as in JAX.
 
 ``mesh`` (a ``DeviceMesh``; None on one device): the params are this
-rank's blocks (``parallel.shard_params``). Each layer gathers its full
-weights where it starts (inside the remat region, so a rematerialized
-backward gathers again), the embedding and lm_head where they are read,
-and the losses divide global sums by global counts
-(``parallel/gather.py``).
+rank's blocks (``parallel.shard_params``). Under a ``tensor`` axis of t >
+1 ranks that the heads and KV heads divide, with dense weights, each
+layer computes its own heads and MLP columns and sums its two partial
+outputs over ``tensor`` (``parallel/tensor.py``; each rank's KV cache
+holds its ``n_kv_heads / t`` heads, ``init_kv_cache(split=t)``), and the
+embedding and the logits are vocab-parallel; else each layer gathers its
+full weights where it starts. The gathers run inside the remat region,
+so a rematerialized backward gathers again. The losses divide global
+sums by global counts (``parallel/gather.py``).
 """
 
 from __future__ import annotations
@@ -49,9 +53,11 @@ from emmax_torch.ops.attention import multi_head_attention, per_row
 from emmax_torch.ops.norms import rms_norm
 from emmax_torch.ops.rope import apply_rope, rope_cos_sin
 from emmax_torch.parallel.constraints import constrain_batch_sharded
-from emmax_torch.parallel.gather import (gather, gather_tree, global_mean,
-                                         layer_blocks)
+from emmax_torch.parallel.gather import gather, global_mean, layer_blocks
 from emmax_torch.parallel.sharding import sliced
+from emmax_torch.parallel.tensor import (WHOLE, DecoderSplit, data_gather,
+                                         decoder_split, vocab_embed,
+                                         vocab_logits, vocab_split)
 
 Params = Dict[str, Any]
 IGNORE_INDEX = -100
@@ -119,7 +125,8 @@ def init_llama_params(generator: torch.Generator, cfg: LlamaConfig,
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device="cpu", quantized: bool = False) -> Params:
+                  device="cpu", quantized: bool = False,
+                  split: int = 1) -> Params:
     """Cache layout: k/v ``[n_layers, B, S, KV, hd]``, the ``[B, S]`` slot
     mask, and ``len``, the host-side write cursor shared by every row
     (serving packs prompts left-padded; the slot-pool engine replaces it
@@ -127,8 +134,10 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
     ``quantized=True`` stores K/V as int8 with fp32 per-(position, head)
     scales ``k_scale``/``v_scale`` [..., 1]; ``dtype`` then names only the
-    dtype the cache is read back in."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dtype the cache is read back in. ``split``: the decoder's tensor split
+    (``decoder_split(...).t``); this rank's cache holds KV / split heads."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // split,
+             cfg.head_dim)
     cache = {"mask": torch.zeros((batch, max_len), dtype=torch.bool,
                                  device=device),
              "len": 0}
@@ -171,12 +180,12 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def layer_slice(layers: Params, i: int, mesh=None) -> Params:
+def layer_slice(layers: Params, i: int) -> Params:
     """Layer ``i`` of the stacked layer params, as views. Int4 weights stay
     stacked with the index attached, for the kernel to read in place.
-    Under a ``mesh`` each dense block is gathered to the layer's full
-    weight (the slice keeps the stacked leaf's spec); quantized leaves are
-    replicated and read as they are."""
+    Each dense block keeps the stacked leaf's spec, for
+    ``DecoderSplit.weights`` to gather where the layer runs; quantized
+    leaves are replicated and read as they are."""
     out = {}
     for key, val in layers.items():
         if isinstance(val, dict) and "q4" in val:
@@ -185,7 +194,7 @@ def layer_slice(layers: Params, i: int, mesh=None) -> Params:
             out[key] = {k: v[i] for k, v in val.items()}
         else:
             out[key] = sliced(val, i)
-    return gather_tree(out, mesh)
+    return out
 
 
 def layer_list(layers: Params, n_layers: int, mesh=None) -> List[Params]:
@@ -234,27 +243,34 @@ def remat_call(remat: Remat, fn, *args):
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def _mlp(h: torch.Tensor, p: Params, cfg: LlamaConfig) -> torch.Tensor:
-    x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    return h + mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]),
-                  p["w_down"])
+def attn_mlp_tail(h: torch.Tensor, attn_flat: torch.Tensor, p: Params,
+                  eps: float, split: DecoderSplit = WHOLE) -> torch.Tensor:
+    """The output projection's residual, then the gated MLP's: the part
+    of a layer after attention (``attn_flat`` [B, L, heads * hd]); under
+    a ``split`` each product is this rank's block, summed over
+    ``tensor``."""
+    h = h + split.reduce(mm(attn_flat, p["wo"]))
+    x = split.enter(rms_norm(h, p["mlp_norm"], eps))
+    return h + split.reduce(mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]),
+                               p["w_down"]))
 
 
 def _layer(h, p, cos, sin, kv_mask, cfg: LlamaConfig, attn_impl: str,
-           mesh=None):
+           split: DecoderSplit = WHOLE):
     """One decoder layer (uncached path, causal)."""
-    p = gather_tree(p, mesh)
+    p = split.weights(p)
     B, L, _ = h.shape
-    x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-    q = mm(x, p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
-    k = mm(x, p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-    v = mm(x, p["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    H, KV = split.heads(cfg)
+    x = split.enter(rms_norm(h, p["attn_norm"], cfg.norm_eps))
+    q = mm(x, p["wq"]).reshape(B, L, H, cfg.head_dim)
+    k = mm(x, p["wk"]).reshape(B, L, KV, cfg.head_dim)
+    v = mm(x, p["wv"]).reshape(B, L, KV, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=True,
                                 impl=attn_impl)
-    h = h + mm(attn.reshape(B, L, cfg.n_heads * cfg.head_dim), p["wo"])
-    return _mlp(h, p, cfg)
+    return attn_mlp_tail(h, attn.reshape(B, L, H * cfg.head_dim), p,
+                         cfg.norm_eps, split)
 
 
 def _row_slots(t0: torch.Tensor, L: int, S: int):
@@ -308,26 +324,27 @@ def cache_update(cache: Params, i: int, t0, k_new: torch.Tensor,
 
 def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
                   cfg: LlamaConfig, attn_impl: str, chunk_mask=None,
-                  mesh=None):
+                  split: DecoderSplit = WHOLE):
     """One decoder layer that writes its K/V into the cache at ``t0`` (host
     int or per-row [B] cursors) and attends over the layer's whole cache
     (the chunk's own slots under ``chunk_mask`` where one is given)."""
-    p = gather_tree(p, mesh)
+    p = split.weights(p)
     B, L, _ = h.shape
-    x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-    k_new = mm(x, p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-    v_new = mm(x, p["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    H, KV = split.heads(cfg)
+    x = split.enter(rms_norm(h, p["attn_norm"], cfg.norm_eps))
+    k_new = mm(x, p["wk"]).reshape(B, L, KV, cfg.head_dim)
+    v_new = mm(x, p["wv"]).reshape(B, L, KV, cfg.head_dim)
     k_new = apply_rope(k_new, cos, sin)
     k_c, v_c = cache_update(cache, i, t0, k_new, v_new, h.dtype)
-    q = mm(x, p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
+    q = mm(x, p["wq"]).reshape(B, L, H, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     # query i (at slot t0 + i) attends to valid slots j <= t0 + i, or
     # under a tree chunk mask to its ancestors' chunk slots
     attn = multi_head_attention(q, k_c, v_c, kv_mask=slot_mask, causal=True,
                                 q_offset=t0, impl=attn_impl,
                                 chunk_mask=chunk_mask)
-    h = h + mm(attn.reshape(B, L, cfg.n_heads * cfg.head_dim), p["wo"])
-    return _mlp(h, p, cfg)
+    return attn_mlp_tail(h, attn.reshape(B, L, H * cfg.head_dim), p,
+                         cfg.norm_eps, split)
 
 
 def default_positions(inputs_embeds: torch.Tensor,
@@ -411,34 +428,47 @@ def llama_forward(params: Params, cfg: LlamaConfig,
     layers = params["layers"]
 
     h = inputs_embeds
+    split = decoder_split(params, cfg, mesh)
     per_layer = layer_list(layers, cfg.n_layers, mesh)
     if kv_cache is None:
         h = constrain_batch_sharded(h)
         for p in per_layer:
             h = remat_call(remat, _layer, h, p, cos, sin, mask, cfg,
-                           attn_impl, mesh)
+                           attn_impl, split)
     else:
         t0 = kv_cache["len"]
         mark_slots(kv_cache, mask, inputs_embeds.shape[1])
         for i, p in enumerate(per_layer):
             h = _cached_layer(h, p, cos, sin, kv_cache, i, t0,
                               kv_cache["mask"], cfg, attn_impl,
-                              chunk_attn_mask, mesh)
+                              chunk_attn_mask, split)
         kv_cache["len"] = t0 + inputs_embeds.shape[1]
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return h, kv_cache
-    logits = mm(h, gather(params["lm_head"], mesh)).to(logits_dtype)
-    return logits, kv_cache
+    return lm_logits(h, params["lm_head"], mesh).to(logits_dtype), kv_cache
+
+
+def lm_logits(h: torch.Tensor, lm_head, mesh=None) -> torch.Tensor:
+    """``h``'s logits over the whole vocab: vocab-parallel where the
+    lm_head is a dense ``tensor`` block (``parallel/tensor.py``), else
+    from the gathered (dense or quantized) lm_head."""
+    if vocab_split(lm_head, -1, mesh):
+        return vocab_logits(h, data_gather(lm_head, mesh), mesh)
+    return mm(h, gather(lm_head, mesh))
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor,
                  mesh=None) -> torch.Tensor:
     """Rows of the embedding table. An id past the table (the byte-level
     tokenizer's pad id is its ``vocab_size``) reads the last row, as the
-    JAX package's clamped gather does; such slots are masked."""
-    table = gather(params["embed"], mesh)
+    JAX package's clamped gather does; such slots are masked. A table
+    whose vocab is split on ``tensor`` is read vocab-parallel."""
+    table = params["embed"]
+    if vocab_split(table, 0, mesh):
+        return vocab_embed(data_gather(table, mesh), input_ids, mesh)
+    table = gather(table, mesh)
     return table[input_ids.clamp(max=table.shape[0] - 1)]
 
 

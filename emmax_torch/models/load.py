@@ -26,11 +26,13 @@ the JAX package's loader reads it; Phi weights come in through
 its files and each leaf is converted straight onto the device, so the
 host holds no second copy of the tree. ``quantize="int8"|"int4"``
 quantizes the decoder's matmul weights and the lm_head (Phi's lm_head
-kernel). From a checkpoint the tree is converted
-on the host, and each stacked leaf moves to the device one layer at a
-time and is quantized there, so the device never holds a dense stacked
-leaf beside the quantized tree (the JAX package quantizes on the host;
-the bytes are the same).
+kernel). From a ``.pt`` or safetensors checkpoint each layer of a
+matmul weight moves to the device, is transposed and cast there and
+quantized there (``convert._stack``), so neither the host nor the device
+ever holds a dense stacked leaf; a run directory's tree (no transposes)
+and the random init of ``init_if_missing`` are placed from the host, one
+layer moved at a time (:func:`place_params`). The JAX package quantizes
+on the host; the bytes are the same.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import torch
 
 from emmax_torch.models.convert import (convert_hf_llama,
                                         convert_hf_openvla_sd,
-                                        convert_projector, convert_timm_vit)
+                                        convert_projector, convert_timm_vit,
+                                        quantize_stacked)
 from emmax_torch.models.materialize import (get_image_transforms,
                                             get_llm_config, get_vision_config)
 from emmax_torch.models.registry import MODEL_REGISTRY
@@ -131,9 +134,11 @@ def load_run_params(ckpt_dir) -> dict:
 # --- reference .pt -----------------------------------------------------------
 
 def convert_prismatic_pt(pt_path, cfg: VLMConfig, dtype=torch.float32,
-                         device="cpu"):
+                         device="cpu", quantize=None):
     """A reference Prismatic / OpenVLA ``.pt`` -> param tree, each leaf in
-    ``dtype`` on ``device``. The file is mapped, not read whole."""
+    ``dtype`` on ``device`` (the decoder's matmul weights and lm_head
+    quantized there by ``quantize``, a weight quantizer, where one is
+    given). The file is mapped, not read whole."""
     blob = torch.load(pt_path, map_location="cpu", weights_only=True,
                       mmap=True)
     model_sd = blob["model"] if "model" in blob else blob
@@ -152,7 +157,8 @@ def convert_prismatic_pt(pt_path, cfg: VLMConfig, dtype=torch.float32,
     return {"vision": vision,
             "projector": convert_projector(model_sd["projector"],
                                            "projector.", dtype, device),
-            "llm": convert_hf_llama(llm_sub, cfg.llm, dtype, device)}
+            "llm": convert_hf_llama(llm_sub, cfg.llm, dtype, device,
+                                    quantize)}
 
 
 # --- placing a host tree ---------------------------------------------------------
@@ -165,19 +171,6 @@ def _cast_tree(tree, dtype, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [_cast_tree(v, dtype, device) for v in tree]
     return tree.to(device, dtype if tree.is_floating_point() else None)
-
-
-def _quantize_layers(w: torch.Tensor, device, qfn) -> dict:
-    """``qfn`` of a host ``[L, D, F]`` leaf, computed on ``device`` one
-    layer at a time into stacked outputs (a weight's quantization is per
-    layer, so the bytes are those of the whole leaf's)."""
-    out = {}
-    for i in range(w.shape[0]):
-        for k, v in qfn(w[i].to(device)).items():
-            if k not in out:
-                out[k] = v.new_empty((w.shape[0],) + v.shape)
-            out[k][i] = v
-    return out
 
 
 def place_params(host: dict, device, quantize: str) -> dict:
@@ -193,7 +186,9 @@ def place_params(host: dict, device, quantize: str) -> dict:
     layers = dict(llm.pop("layers"))
     for key in QUANT_KEYS:
         if key in layers:
-            layers[key] = _quantize_layers(layers.pop(key), device, qfn)
+            w = layers.pop(key)
+            layers[key] = quantize_stacked(w.shape[0],
+                                           lambda i: w[i].to(device), qfn)
     lm_head = quantize_lm_head(move(llm.pop("lm_head")), qfn)
     return {"vision": move(host["vision"]),
             "projector": move(host["projector"]),
@@ -204,25 +199,34 @@ def place_params(host: dict, device, quantize: str) -> dict:
 
 def load_checkpoint_params(path, cfg: VLMConfig, dtype=torch.bfloat16,
                            init_if_missing: bool = False, seed: int = 0,
-                           device="cpu"):
+                           device="cpu", quantize: Optional[str] = None):
     """The param tree of a checkpoint directory, in ``dtype`` on
     ``device``: the port's run dir, else ``checkpoints/*.pt``, else
     safetensors. ``init_if_missing`` draws the weights on the CPU from
-    ``seed`` (the same values whatever ``device``)."""
+    ``seed`` (the same values whatever ``device``). ``quantize`` ("int8"
+    / "int4"): the decoder's matmul weights and lm_head quantized on
+    ``device`` (the module docstring)."""
     path = Path(path)
+    qfn = (None if quantize is None
+           else weight_quantizer(4 if quantize == "int4" else 8))
+
+    def place(host):
+        return (_cast_tree(host, dtype, device) if quantize is None
+                else place_params(_cast_tree(host, dtype), device, quantize))
+
     ckpt = _latest_checkpoint(path)
     if ckpt is not None:
-        return _cast_tree(load_run_params(ckpt), dtype, device)
+        return place(load_run_params(ckpt))
     pts = sorted(path.glob("checkpoints/*.pt"))
     if pts:
-        return convert_prismatic_pt(pts[-1], cfg, dtype, device)
+        return convert_prismatic_pt(pts[-1], cfg, dtype, device, qfn)
     if any(path.glob("*.safetensors")):
-        return convert_hf_openvla_sd(load_dir(path), cfg, dtype, device)
+        return convert_hf_openvla_sd(load_dir(path), cfg, dtype, device,
+                                     qfn)
     if init_if_missing:
         generator = torch.Generator("cpu")
         generator.manual_seed(seed)
-        return _cast_tree(init_vlm_params(generator, cfg, dtype, "cpu"),
-                          dtype, device)
+        return place(init_vlm_params(generator, cfg, dtype, "cpu"))
     raise FileNotFoundError(f"no checkpoint under {path} (run dir, "
                             "checkpoints/*.pt or *.safetensors)")
 
@@ -253,12 +257,8 @@ def load(model_id_or_path, dtype: torch.dtype = torch.bfloat16,
         tc_vocab = blob.get("text_config", {}).get("vocab_size")
         if vid == "tiny" and tc_vocab and tc_vocab != cfg.llm.vocab_size:
             cfg = tiny_vlm_config(vocab_size=tc_vocab)
-        if quantize is None:
-            params = load_checkpoint_params(path, cfg, dtype,
-                                            init_if_missing, seed, device)
-        else:
-            params = place_params(load_checkpoint_params(
-                path, cfg, dtype, init_if_missing, seed), device, quantize)
+        params = load_checkpoint_params(path, cfg, dtype, init_if_missing,
+                                        seed, device, quantize)
     else:
         if str(model_id_or_path) not in MODEL_REGISTRY:
             raise KeyError(f"{model_id_or_path!r} is neither a directory "

@@ -20,8 +20,10 @@ cache where the patches are reused (``serving/speculative.py``).
 
 ``mesh``: ``params`` are this rank's blocks
 (``EmmaXVLA(cfg, parallel.shard_params(params, mesh), ..., mesh=mesh)``);
-the engine gathers each weight where it is used and every rank returns
-the single-device policy's text and actions.
+the engine reads them as ``ServingEngine`` does (the decoder split over
+``tensor`` where ``parallel.tensor.decoder_split`` says so, each weight
+gathered where it is used elsewhere) and every rank returns the same text
+and actions, the single-device policy's up to the split's rounding.
 """
 
 from __future__ import annotations

@@ -71,9 +71,19 @@ def gather(x, mesh):
     """The full weight of a placed block (its ``spec_of``), differentiable;
     ``x`` itself without a mesh, for an untagged tensor, a quantized
     weight's dict or a replicated block."""
+    return gather_axes(x, mesh, ("replica", "fsdp", "tensor"))
+
+
+def gather_axes(x, mesh, axes):
+    """:func:`gather` over ``axes`` only: a block split on another axis
+    stays this rank's block there (``parallel/tensor.py`` gathers the
+    decoder's split blocks over the data axes alone)."""
     if mesh is None or not isinstance(x, torch.Tensor):
         return x
     spec = spec_of(x)
+    if spec is None:
+        return x
+    spec = tuple(e if e in axes else None for e in spec)
     if not is_sharded(spec):
         return x
     return _GatherAtUse.apply(x, spec, mesh)

@@ -221,11 +221,18 @@ def dist_fn(name: str, old_name: str):
 def all_gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The full leaf from every rank's block (a collective: every rank of
     the mesh calls it). No autograd; ``parallel.gather.gather`` is the
-    differentiable version."""
+    differentiable version. Over ``tensor`` the blocks are gathered by
+    ``parallel.tensor.gather_axis`` (an exact all-reduce) and their bytes
+    counted."""
+    from emmax_torch.parallel.tensor import gather_axis
+
     all_gather = dist_fn("all_gather_single", "all_gather_into_tensor")
     sizes = axis_sizes(mesh)
     for d, e in enumerate(spec):
         if e is None:
+            continue
+        if e == "tensor":
+            x = gather_axis(x.contiguous(), d, mesh, weight=True)
             continue
         xs = x.movedim(d, 0).contiguous()
         out = xs.new_empty((sizes[e] * xs.shape[0],) + xs.shape[1:])

@@ -17,8 +17,9 @@ Mechanics:
   host reads the emitted tokens and the active flags once per burst.
 
 ``mesh``: the params are this rank's blocks (``parallel.shard_params``),
-gathered where they are used, as in ``ServingEngine``; the slot pool is
-whole on every rank, and every rank runs the same schedule.
+used as in ``ServingEngine``: under a ``tensor`` split each rank's slot
+pool holds its ``n_kv_heads / t`` KV heads, else the pool is whole. Every
+rank runs the same schedule.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from emmax_torch.models.llama import embed_tokens, init_kv_cache
 from emmax_torch.models.vlm import VLMConfig, fuse_multimodal, llm_apply
+from emmax_torch.parallel.tensor import decoder_split
 from emmax_torch.serving.engine import (check_mesh, resolve_device,
                                         resolve_patches)
 
@@ -49,7 +51,9 @@ def _prefill_batch(params, cfg: VLMConfig, input_ids: torch.Tensor,
     G = input_ids.shape[0]
     cache = init_kv_cache(cfg.llm, G, cache_len,
                           dtype=params["llm"]["embed"].dtype,
-                          device=input_ids.device, quantized=quantized_cache)
+                          device=input_ids.device, quantized=quantized_cache,
+                          split=decoder_split(params["llm"], cfg.llm,
+                                              mesh).t)
     patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
                                    mesh)
     embeds, fmask, _, positions = fuse_multimodal(
@@ -151,7 +155,9 @@ class ContinuousServingEngine:
         self.quantized_cache = quantized_cache
         base = init_kv_cache(cfg.llm, num_slots, cache_len,
                              dtype=embed.dtype, device=self.device,
-                             quantized=quantized_cache)
+                             quantized=quantized_cache,
+                             split=decoder_split(params["llm"], cfg.llm,
+                                                 mesh).t)
 
         def zeros(dtype):
             return torch.zeros((num_slots,), dtype=dtype, device=self.device)

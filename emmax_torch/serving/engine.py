@@ -18,12 +18,14 @@ the loop stops after ``max_new`` steps or when every row is done.
 
 ``ServingEngine(cfg, parallel.shard_params(params, mesh), tok, mesh=mesh)``
 serves from each rank's blocks: every rank runs the same host loop on the
-same request, gathering each weight where it is used, and produces the
-tokens of the single-device engine (a quantized tree's ``q4`` / ``q8`` /
-``scale`` leaves are replicated, so it computes as on one device). The
-KV cache is whole on every rank. The speculative, slot-pool and paged
-engines take ``mesh`` the same way; a mesh on another device type than
-the engine's raises (``check_mesh``).
+same request and produces the same tokens. Under a ``tensor`` axis the
+decoder computes each rank's heads and MLP columns and each rank's KV
+cache holds its ``n_kv_heads / t`` heads (``parallel/tensor.py``);
+otherwise each weight is gathered where it is used and the cache is
+whole (a quantized tree's ``q4`` / ``q8`` / ``scale`` leaves are
+replicated, so its layers compute as on one device). The speculative,
+slot-pool and paged engines take ``mesh`` the same way; a mesh on another
+device type than the engine's raises (``check_mesh``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from torch.profiler import record_function
 from emmax_torch.models.llama import embed_tokens, init_kv_cache
 from emmax_torch.models.vlm import (VLM, VLMConfig, encode_images,
                                     fuse_multimodal, llm_apply)
+from emmax_torch.parallel.tensor import decoder_split
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256)
 DONE_CHECK_EVERY = 8
@@ -192,7 +195,9 @@ def _prefill_last_logits(params, cfg: VLMConfig, input_ids: torch.Tensor,
     B = input_ids.shape[0]
     cache = init_kv_cache(cfg.llm, B, cache_len,
                           dtype=params["llm"]["embed"].dtype,
-                          device=input_ids.device)
+                          device=input_ids.device,
+                          split=decoder_split(params["llm"], cfg.llm,
+                                              mesh).t)
     patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
                                    mesh)
     embeds, fmask, _, positions = fuse_multimodal(
@@ -301,7 +306,8 @@ class ServingEngine:
         cache_len = _round_up(cfg.num_patches + L + max_new)
         cache = init_kv_cache(cfg.llm, B, cache_len,
                               dtype=llm["embed"].dtype, device=self.device,
-                              quantized=self.quantized_cache)
+                              quantized=self.quantized_cache,
+                              split=decoder_split(llm, cfg.llm, mesh).t)
         marks = self._marks(4)
         host_t = [0.0] * 4
 

@@ -40,9 +40,12 @@ Decode modes (``paged_attn``):
 Any other name raises.
 
 ``mesh``: the params are this rank's blocks (``parallel.shard_params``);
-each layer's weights, the embedding and the lm_head are gathered where
-they are read, as in ``ServingEngine``. The page pool is whole on every
-rank, and every rank runs the same schedule.
+the layers run as in ``llama_forward``: split over ``tensor`` where
+``parallel.tensor.decoder_split`` says so (each rank's page pool then
+holds its ``n_kv_heads / t`` KV heads and the kernel reads those), else
+each layer's weights gathered where they are read; the embedding and the
+logits are vocab-parallel where those leaves are ``tensor`` blocks.
+Every rank runs the same schedule.
 
 The pool is updated in place. Where JAX drops an out-of-bounds scatter
 (an admission with no slot, ``submit_shared``'s prefix prefill) the port
@@ -61,14 +64,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from emmax_torch.models.llama import (LlamaConfig, embed_tokens,
-                                      layer_slice, mm)
+from emmax_torch.models.llama import (LlamaConfig, attn_mlp_tail,
+                                      embed_tokens, layer_slice, lm_logits,
+                                      mm)
 from emmax_torch.models.vlm import VLMConfig, fuse_multimodal
 from emmax_torch.ops.attention import multi_head_attention
 from emmax_torch.ops.norms import rms_norm
 from emmax_torch.ops.paged_attention import paged_attention
 from emmax_torch.ops.rope import apply_rope, rope_cos_sin
-from emmax_torch.parallel.gather import gather
+from emmax_torch.parallel.tensor import decoder_split
 from emmax_torch.serving.engine import (check_mesh, resolve_device,
                                         resolve_patches)
 
@@ -101,15 +105,6 @@ def _write_rows(pages: torch.Tensor, rows: torch.Tensor, gids: torch.Tensor,
     """In place: ``rows [KV, B, last]`` into ``pages [KV, P, ps, last]`` at
     page ``gids[b]``, offset ``offs[b]``."""
     pages[:, gids, offs] = rows.to(pages.dtype)
-
-
-def _attn_mlp_tail(h, attn_flat, p, eps):
-    """Output projection + gated-MLP residual shared by every decode and
-    prefill layer body here (only the KV plumbing differs between them)."""
-    h = h + mm(attn_flat, p["wo"])
-    x2 = rms_norm(h, p["mlp_norm"], eps)
-    return h + mm(F.silu(mm(x2, p["w_gate"])) * mm(x2, p["w_up"]),
-                  p["w_down"])
 
 
 def _q_grouped(q: torch.Tensor, kv: int) -> torch.Tensor:
@@ -222,14 +217,16 @@ def _poolmask_attention(q, k_pages, v_pages, k_scale, v_scale, layer: int,
 def init_paged_pool(cfg: VLMConfig, *, n_pages: int, page_size: int,
                     num_slots: int, max_pages_per_slot: int,
                     dtype: torch.dtype = torch.bfloat16,
-                    quantized: bool = False, device="cpu") -> Dict:
+                    quantized: bool = False, device="cpu",
+                    split: int = 1) -> Dict:
     """Page pool with one trash page per layer (local id ``n_pages``):
     inactive rows of the batched decode step write there instead of
     clobbering a live page. ``quantized=True`` stores int8 pages with
-    per-row absmax scales (half the page bytes)."""
+    per-row absmax scales (half the page bytes). ``split``: the decoder's
+    tensor split; this rank's pages hold KV / split heads."""
     llm = cfg.llm
-    shape = (llm.n_kv_heads, llm.n_layers * (n_pages + 1), page_size,
-             llm.head_dim)
+    shape = (llm.n_kv_heads // split, llm.n_layers * (n_pages + 1),
+             page_size, llm.head_dim)
 
     def zeros(shape_, dt):
         return torch.zeros(shape_, dtype=dt, device=device)
@@ -255,7 +252,7 @@ def init_paged_pool(cfg: VLMConfig, *, n_pages: int, page_size: int,
 def _finish(h, llm_params, llm_cfg, mesh=None):
     """Final norm, fp32 logits [B, V] of the last position, greedy ids."""
     h = rms_norm(h[:, -1:], llm_params["final_norm"], llm_cfg.norm_eps)
-    logits = mm(h, gather(llm_params["lm_head"], mesh)).float()[:, 0]
+    logits = lm_logits(h, llm_params["lm_head"], mesh).float()[:, 0]
     return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -271,7 +268,9 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
     ``page_owner`` / ``page_pos`` (``[n_pages + 1]`` int32)."""
     B, MP = pool["page_table"].shape
     stride = n_pages + 1
-    kv, hd = llm_cfg.n_kv_heads, llm_cfg.head_dim
+    split = decoder_split(llm_params, llm_cfg, mesh)
+    n_heads, kv = split.heads(llm_cfg)
+    hd = llm_cfg.head_dim
     t = pool["len"]                                     # [B] cursors
     dev = t.device
     cos, sin = rope_cos_sin(t[:, None], hd, llm_cfg.rope_theta)
@@ -288,8 +287,8 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
     quantized = "k_scale" in pool
     h = embed_tokens(llm_params, pool["cur"][:, None], mesh)  # [B, 1, D]
     for i in range(llm_cfg.n_layers):
-        p = layer_slice(llm_params["layers"], i, mesh)
-        x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
+        p = split.weights(layer_slice(llm_params["layers"], i))
+        x = split.enter(rms_norm(h, p["attn_norm"], llm_cfg.norm_eps))
         k_new = apply_rope(mm(x, p["wk"]).reshape(B, 1, kv, hd), cos, sin)
         v_new = mm(x, p["wv"]).reshape(B, 1, kv, hd)
         gids = (i * stride + local_ids).long()
@@ -303,8 +302,7 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
         _write_rows(pool["k"], k_row, gids, off_of_t)
         _write_rows(pool["v"], v_row, gids, off_of_t)
 
-        q = apply_rope(mm(x, p["wq"]).reshape(B, 1, llm_cfg.n_heads, hd),
-                       cos, sin)
+        q = apply_rope(mm(x, p["wq"]).reshape(B, 1, n_heads, hd), cos, sin)
         table_l = i * stride + local_table                    # [B, MP] global
         if paged_attn == "kernel":
             # no 1/sqrt(hd) in the kernel: pre-scale q in fp32, as JAX
@@ -344,7 +342,8 @@ def _paged_decode_step(llm_params, llm_cfg, pool: Dict, *, page_size: int,
                 lengths, page_size=page_size)
         else:
             raise ValueError(f"unknown per-step paged_attn {paged_attn!r}")
-        h = _attn_mlp_tail(h, attn.reshape(B, 1, -1), p, llm_cfg.norm_eps)
+        h = attn_mlp_tail(h, attn.reshape(B, 1, -1), p, llm_cfg.norm_eps,
+                          split)
     logits, nxt = _finish(h, llm_params, llm_cfg, mesh)
     return pool, nxt, logits
 
@@ -368,7 +367,9 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
     stride = n_pages + 1
     S = MP * page_size
     L = llm_cfg.n_layers
-    kv, hd = llm_cfg.n_kv_heads, llm_cfg.head_dim
+    split = decoder_split(llm_params, llm_cfg, mesh)
+    n_heads, kv = split.heads(llm_cfg)
+    hd = llm_cfg.head_dim
     quantized = "k_scale" in pool
     dev = pool["len"].device
     len0 = pool["len"]                                  # [B] at burst start
@@ -407,8 +408,8 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
         lengths = t + 1
         h = embed_tokens(llm_params, cur[:, None], mesh)    # [B, 1, D]
         for i in range(L):
-            p = layer_slice(llm_params["layers"], i, mesh)
-            x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
+            p = split.weights(layer_slice(llm_params["layers"], i))
+            x = split.enter(rms_norm(h, p["attn_norm"], llm_cfg.norm_eps))
             k_new = apply_rope(mm(x, p["wk"]).reshape(B, 1, kv, hd), cos,
                                sin)
             v_new = mm(x, p["wv"]).reshape(B, 1, kv, hd)
@@ -423,8 +424,8 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
             k_l[:, rows, slot] = k_row.to(k_l.dtype)
             v_l[:, rows, slot] = v_row.to(v_l.dtype)
 
-            q = apply_rope(mm(x, p["wq"]).reshape(B, 1, llm_cfg.n_heads, hd),
-                           cos, sin)
+            q = apply_rope(mm(x, p["wq"]).reshape(B, 1, n_heads, hd), cos,
+                           sin)
             q2 = _q_grouped(q, kv).to(opd)              # [B, KV, G, hd]
             s = torch.einsum("bkgd,kbsd->bkgs", q2,
                              k_l.to(opd)).float() * (hd ** -0.5)
@@ -437,8 +438,8 @@ def _burstdense_decode_burst(llm_params, llm_cfg, pool: Dict, *,
             if quantized:
                 w = w * (vsc[:, i].transpose(0, 1)[:, :, None] / _MAX_INT8)
             attn = torch.einsum("bkgs,kbsd->bkgd", w.to(opd), v_l.to(opd))
-            h = _attn_mlp_tail(h, attn.reshape(B, 1, -1).to(h.dtype), p,
-                               llm_cfg.norm_eps)
+            h = attn_mlp_tail(h, attn.reshape(B, 1, -1).to(h.dtype), p,
+                              llm_cfg.norm_eps, split)
         _, nxt = _finish(h, llm_params, llm_cfg, mesh)
         emitted.append(torch.where(active, cur, eos_id))
         remaining = torch.where(active, remaining - 1, remaining)
@@ -580,7 +581,9 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
         patch_embeds, embed_tokens(llm, input_ids, mesh), mask)
     B, S, _ = embeds.shape
     cos, sin = rope_cos_sin(positions, llm_cfg.head_dim, llm_cfg.rope_theta)
-    kv, hd = llm_cfg.n_kv_heads, llm_cfg.head_dim
+    split = decoder_split(llm, llm_cfg, mesh)
+    n_heads, kv = split.heads(llm_cfg)
+    hd = llm_cfg.head_dim
     pad = n0 * page_size - S
     gid_local = page_ids.reshape(-1)                    # [G*n0]
 
@@ -591,10 +594,9 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
 
     h = embeds
     for i in range(llm_cfg.n_layers):
-        p = layer_slice(llm["layers"], i, mesh)
-        x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
-        q = apply_rope(mm(x, p["wq"]).reshape(B, S, llm_cfg.n_heads, hd),
-                       cos, sin)
+        p = split.weights(layer_slice(llm["layers"], i))
+        x = split.enter(rms_norm(h, p["attn_norm"], llm_cfg.norm_eps))
+        q = apply_rope(mm(x, p["wq"]).reshape(B, S, n_heads, hd), cos, sin)
         k = apply_rope(mm(x, p["wk"]).reshape(B, S, kv, hd), cos, sin)
         v = mm(x, p["wv"]).reshape(B, S, kv, hd)
         k_pg, v_pg = to_pages(k), to_pages(v)
@@ -609,7 +611,8 @@ def _prefill_into_pool(params, cfg: VLMConfig, pool: Dict,
         _write_pages(pool["v"], v_pg, i * stride, gid_local, contiguous)
         attn = multi_head_attention(q, k, v, kv_mask=fmask, causal=True,
                                     impl=attn_impl)
-        h = _attn_mlp_tail(h, attn.reshape(B, S, -1), p, llm_cfg.norm_eps)
+        h = attn_mlp_tail(h, attn.reshape(B, S, -1), p, llm_cfg.norm_eps,
+                          split)
     _, first = _finish(h, llm, llm_cfg, mesh)
     table_rows = torch.full((G, pool["page_table"].shape[1]), -1,
                             dtype=torch.int32)
@@ -644,7 +647,9 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
     pages are referenced by ``table_rows`` [G, MP] and never written."""
     stride = n_pages + 1
     G, T = tail_ids.shape
-    kv, hd = llm_cfg.n_kv_heads, llm_cfg.head_dim
+    split = decoder_split(llm_params, llm_cfg, mesh)
+    n_heads, kv = split.heads(llm_cfg)
+    hd = llm_cfg.head_dim
     quantized = "k_scale" in pool
     dev = tail_ids.device
     n_pre = prefix_table.shape[0]
@@ -680,10 +685,9 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
         _write_pages(pages, rows, i * stride, own_flat, contiguous)
 
     for i in range(llm_cfg.n_layers):
-        p = layer_slice(llm_params["layers"], i, mesh)
-        x = rms_norm(h, p["attn_norm"], llm_cfg.norm_eps)
-        q = apply_rope(mm(x, p["wq"]).reshape(G, T, llm_cfg.n_heads, hd),
-                       cos, sin)
+        p = split.weights(layer_slice(llm_params["layers"], i))
+        x = split.enter(rms_norm(h, p["attn_norm"], llm_cfg.norm_eps))
+        q = apply_rope(mm(x, p["wq"]).reshape(G, T, n_heads, hd), cos, sin)
         k_t = apply_rope(mm(x, p["wk"]).reshape(G, T, kv, hd), cos, sin)
         v_t = mm(x, p["wv"]).reshape(G, T, kv, hd)
         k_pre, v_pre = gather_prefix(i)
@@ -694,7 +698,8 @@ def _prefill_tail_into_pool(llm_params, llm_cfg, pool: Dict,
         # the JAX package's call takes its default attention, the plain one
         attn = multi_head_attention(q, k_cat, v_cat, kv_mask=kv_mask,
                                     causal=True, q_offset=Sp, impl="torch")
-        h = _attn_mlp_tail(h, attn.reshape(G, T, -1), p, llm_cfg.norm_eps)
+        h = attn_mlp_tail(h, attn.reshape(G, T, -1), p, llm_cfg.norm_eps,
+                          split)
         # own region = prefix rows past the last full shared page + tail
         full_k = torch.cat([k_pre[:, own_start:prefix_len].expand(
             G, -1, -1, -1).to(k_t.dtype), k_t], dim=1)
@@ -787,7 +792,8 @@ class PagedServingEngine:
         self.pool = init_paged_pool(
             cfg, n_pages=n_pages, page_size=page_size, num_slots=num_slots,
             max_pages_per_slot=max_pages_per_slot, dtype=embed.dtype,
-            quantized=quantized_cache, device=self.device)
+            quantized=quantized_cache, device=self.device,
+            split=decoder_split(params["llm"], cfg.llm, mesh).t)
         self.free_pages: List[int] = list(range(n_pages))
         # host mirrors of the per-slot scheduler state; refreshed from the
         # burst's packed status (one fetch) and set directly at admission

@@ -41,9 +41,11 @@ prefix of the next frame's tail refresh, keeps JAX's mask and cursor, and
 the tail's queries (causal, below F) never see the decoded rows.
 
 ``mesh``: the params are this rank's blocks (``parallel.shard_params``),
-gathered where each forward reads them, as in ``ServingEngine``; the
-cache is whole on every rank, and every rank runs the same host loop on
-the same request, so every rank drafts, accepts and emits alike.
+read by each forward as in ``ServingEngine``: under a ``tensor`` split
+each rank's cache holds its ``n_kv_heads / t`` KV heads (the tree
+compaction moves those rows), else the cache is whole. Every rank runs
+the same host loop on the same request, and the forwards give every rank
+the same logits, so every rank drafts, accepts and emits alike.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from torch.profiler import record_function
 from emmax_torch.models.llama import embed_tokens, init_kv_cache
 from emmax_torch.models.tree import leaves_with_path
 from emmax_torch.models.vlm import VLMConfig, fuse_multimodal, llm_apply
+from emmax_torch.parallel.tensor import decoder_split
 from emmax_torch.parallel.sharding import sliced
 from emmax_torch.serving.engine import (ServingEngine, _round_up,
                                         encode_frame, pick_bucket,
@@ -292,7 +295,8 @@ def _spec_prefill_impl(params, cfg: VLMConfig, input_ids: torch.Tensor,
     llm = params["llm"]
     cache = init_kv_cache(cfg.llm, input_ids.shape[0], cache_len,
                           dtype=llm["embed"].dtype, device=input_ids.device,
-                          quantized=quantized_cache)
+                          quantized=quantized_cache,
+                          split=decoder_split(llm, cfg.llm, mesh).t)
     with record_function("emmax_torch.encode"):
         patch_embeds = resolve_patches(params, cfg, pixel_values, attn_impl,
                                        mesh)

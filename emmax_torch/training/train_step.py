@@ -14,7 +14,10 @@ gradient reaches the fp32 master in fp32.
 
 ``mesh`` (the JAX package's ``jit_train_step(mesh=)``): the state holds
 each rank's blocks (``parallel.shard_params``) and the batch each rank's
-rows (``parallel.shard_batch``). The forward gathers weights at use, the
+rows (``parallel.shard_batch``). The forward gathers weights at use, or
+computes each rank's block of a decoder split over ``tensor``
+(``parallel/tensor.py``: a split layer's input gradient is summed over
+``tensor`` in the backward, and a split block's gradient is its own), the
 loss and metrics are the global batch's, and after the backward each
 gradient is summed over the data axes its leaf is not split on, so the
 step equals the single-device step on the global batch

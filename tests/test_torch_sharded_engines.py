@@ -16,6 +16,11 @@ for ``EmmaXVLA``, which takes camera frames. The paged engine's
 ``"kernel"`` mode takes the kernel's plain version on the CPU and is held
 to JAX's ``"gather"``; so is ``"poolmask"`` beside an empty slot, where
 JAX's turns NaN (ROADMAP Queue 3).
+
+At (1, 4, 2) and (1, 1, 2) (the first two ranks) the tiny decoder is split
+over ``tensor`` (``emmax_torch/parallel/tensor.py``): each rank's cache
+and page pool hold half the KV heads, and the tokens and steps are still
+JAX's.
 """
 
 import functools
@@ -126,7 +131,9 @@ def _jax_spec_tokens(mesh_shape=None):
     (draft_k 4, 12 new tokens): (tokens, steps)."""
     s = _vocab512()
     params = (s.params if mesh_shape is None
-              else shard_params(s.params, make_mesh(mesh_shape)))
+              else shard_params(s.params, make_mesh(
+                  mesh_shape,
+                  devices=jax.devices()[:int(np.prod(mesh_shape))])))
     eng, vision = _jax_spec(params, s, draft_k=4)
     out = eng.generate_ids([PROMPT], vision, max_new_tokens=12)
     return np.asarray(out), eng.last_steps
@@ -143,7 +150,8 @@ def _check_ranks(results, want_tokens, want_steps=None, want_prefill=None):
                 assert call["prefill"] == want_prefill[c], (rank, c)
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2)], ids=str)
+@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2), (1, 1, 2)],
+                         ids=str)
 def test_speculative_sharded_gives_jax_tokens(pool, mesh_shape):
     s = _vocab512()
     want, steps = _jax_spec_tokens()
@@ -189,7 +197,8 @@ def _tree_case():
             eng.last_steps)
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2)], ids=str)
+@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2), (1, 1, 2)],
+                         ids=str)
 def test_tree_engine_sharded_same_tokens_and_steps(pool, mesh_shape):
     """The tree's ancestor-mask forward and the accepted path's K/V
     compaction on the ranks' whole caches, with sharded weights: JAX's
@@ -257,6 +266,25 @@ def test_paged_sharded_gives_jax_tokens(pool, mode, n_requests, jax_mode):
                        requests=_paged_requests(n_requests),
                        mesh_shape=(1, 1, 8), engine="paged",
                        engine_kw={**PAGED_KW, "paged_attn": mode})
+    for rank, r in enumerate(results):
+        assert r["tokens"] == want, (rank, r["tokens"], want)
+        assert r["pages_back"], rank
+
+
+@pytest.mark.parametrize("mode,n_requests,jax_mode", PAGED_CASES,
+                         ids=[c[0] for c in PAGED_CASES])
+def test_paged_tensor_split_gives_jax_tokens(pool, mode, n_requests,
+                                             jax_mode):
+    """The paged engine with the decoder split over ``tensor`` at (1, 1,
+    2): each rank's page pool holds 2 of the 4 KV heads, the kernel mode
+    reads those; JAX's tokens, every page back."""
+    s = _vocab512()
+    want = _jax_paged(jax_mode, n_requests)
+    results = pool.run("batched", params=s.host, patches=[s.patches],
+                       requests=_paged_requests(n_requests),
+                       mesh_shape=(1, 1, 2), engine="paged",
+                       engine_kw={**PAGED_KW, "paged_attn": mode})
+    assert len(results) == 2
     for rank, r in enumerate(results):
         assert r["tokens"] == want, (rank, r["tokens"], want)
         assert r["pages_back"], rank

@@ -2,7 +2,9 @@
 ``tests/test_serving_sharded.py``: ``ServingEngine(cfg,
 shard_params(params, mesh), tok, mesh=mesh)`` on 8 gloo ranks gives, on
 every rank, the greedy tokens of JAX's engine on JAX-sharded params and
-of the port's unsharded engine, at (1,1,8), (1,4,2) and (1,8,1). A
+of the port's unsharded engine, at (1,1,8), (1,4,2), (1,8,1) and (1,1,2)
+(the decoder split over ``tensor``, ``parallel/tensor.py``, on the first
+two ranks; (1,4,2) splits it too). A
 quantized tree (its ``q8`` / ``q4`` / ``scale`` leaves replicated)
 serves the tokens of its unsharded engine. The speculative engine's
 memory fence counts one rank's bytes of a sharded tree, as JAX counts one
@@ -74,12 +76,13 @@ def unsharded(setup):
             "port": _port_tokens(host, pixels)}
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2), (1, 8, 1)],
-                         ids=str)
+@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2), (1, 8, 1),
+                                        (1, 1, 2)], ids=str)
 def test_sharded_engine_gives_jax_tokens(setup, unsharded, mesh_shape):
     cfg, params, host, pixels, pool = setup
-    want = _jax_tokens(cfg, shard_params(params, make_mesh(mesh_shape)),
-                       pixels)
+    mesh = make_mesh(mesh_shape,
+                     devices=jax.devices()[:int(np.prod(mesh_shape))])
+    want = _jax_tokens(cfg, shard_params(params, mesh), pixels)
     np.testing.assert_array_equal(want, unsharded["jax"])
     np.testing.assert_array_equal(unsharded["port"], want)
     for out in pool.run("serve", params=host, pixels=pixels, prompt=PROMPT,

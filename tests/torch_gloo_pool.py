@@ -11,10 +11,16 @@ results are numpy arrays, numbers and dicts of them. The workers import
 process on its 8 virtual devices. A task that fails on one rank leaves
 the others in a collective, so the pool is killed and the test fails
 with the worker's traceback.
+
+A ``mesh_shape`` smaller than the pool (``(1, 1, 2)`` of 8 ranks) is a
+mesh of the first ranks: every rank builds it (making its groups is a
+collective of the whole group), the ranks outside it skip the task, and
+``run`` returns the mesh's ranks' results.
 """
 
 from __future__ import annotations
 
+import math
 import multiprocessing
 import socket
 import time
@@ -72,10 +78,13 @@ class GlooPool:
         return out
 
     def run(self, task: str, **kwargs) -> list:
-        """``task(**kwargs)`` on every rank; the results by rank."""
+        """``task(**kwargs)`` on every rank; the results by rank (the mesh's
+        ranks' for a mesh smaller than the pool)."""
         for conn in self.conns:
             conn.send((task, kwargs))
-        return self._collect()
+        out = self._collect()
+        shape = kwargs.get("mesh_shape")
+        return out if shape is None else out[:math.prod(shape)]
 
     def close(self) -> None:
         for conn in self.conns:
@@ -116,6 +125,10 @@ def _worker(rank: int, world: int, port: int, conn) -> None:
         try:
             if "jax" in sys.modules or "emmax_tpu" in sys.modules:
                 raise RuntimeError("a gloo worker imported JAX")
+            shape = kwargs.get("mesh_shape")
+            if shape is not None and _mesh(shape).get_coordinate() is None:
+                conn.send(("ok", None))      # outside a smaller mesh
+                continue
             conn.send(("ok", TASKS[name](**kwargs)))
         except BaseException:
             conn.send(("err", traceback.format_exc()))
@@ -129,12 +142,23 @@ _MESHES = {}
 
 def _mesh(shape):
     """One DeviceMesh per shape and worker (building one is a collective
-    that makes new groups)."""
+    that makes new groups); a shape smaller than the world is a mesh of
+    its first ranks."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
     from emmax_torch.parallel import make_mesh
+    from emmax_torch.parallel.mesh import AXIS_NAMES
 
     shape = tuple(shape)
     if shape not in _MESHES:
-        _MESHES[shape] = make_mesh(shape, device_type="cpu")
+        n = math.prod(shape)
+        _MESHES[shape] = (
+            make_mesh(shape, device_type="cpu")
+            if n == dist.get_world_size()
+            else DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                            mesh_dim_names=AXIS_NAMES))
     return _MESHES[shape]
 
 
@@ -433,7 +457,76 @@ def oom_risk(params, mesh_shape, hbm_bytes):
     return _spec_bf16_oom_risk(local, hbm_bytes)
 
 
+def split_forward(params, ids, mask, grad_w, mesh_shape, *, vocab_size=512,
+                  cache_len=32):
+    """The tiny decoder (fp32) on the mesh, from token ids: the embedded
+    rows, the uncached logits, the gradient of ``sum(logits * grad_w)``
+    for every decoder leaf (each block gathered to the whole leaf; None
+    on a mesh with data axes, where the ranks would sum the same batch's
+    gradients), the
+    logits of a cached prefill and of one decode step after it, this
+    rank's cache heads, and the split's counts: collectives over
+    ``tensor`` in the uncached forward and ``all_gather_leaf`` calls over
+    ``tensor`` in all the forwards."""
+    import torch
+
+    from emmax_torch.bridge import params_from_numpy
+    from emmax_torch.models import llama
+    from emmax_torch.models.tree import leaves_with_path
+    from emmax_torch.models.vlm import tiny_vlm_config
+    from emmax_torch.parallel import gather as pgather
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.parallel import tensor as ptensor
+    from emmax_torch.parallel.sharding import (all_gather_leaf, data_extent,
+                                               is_sharded, spec_of)
+
+    cfg = tiny_vlm_config(vocab_size=vocab_size).llm
+    mesh = _mesh(mesh_shape)
+    llm = shard_params(params_from_numpy(params), mesh)["llm"]
+    split = ptensor.decoder_split(llm, cfg, mesh)
+    calls = []
+    real = pgather.all_gather_leaf
+
+    def counted(x, spec, m):
+        calls.append("tensor" in spec)
+        return real(x, spec, m)
+
+    pgather.all_gather_leaf = counted
+    try:
+        ids_t, mask_t = _tensors(ids), _tensors(mask)
+        leaves = [(p, t.requires_grad_()) for p, t in
+                  leaves_with_path(llm)]
+        ptensor.reset_counts()
+        embeds = llama.embed_tokens(llm, ids_t, mesh)
+        logits, _ = llama.llama_forward(llm, cfg, embeds, mask=mask_t,
+                                        attn_impl="torch", mesh=mesh)
+        sums = ptensor.counts["sums"]
+        grads = None
+        if data_extent(mesh) == 1:      # every rank holds the whole batch
+            (logits * _tensors(grad_w)).sum().backward()
+            grads = {p: all_gather_leaf(t.grad, spec_of(t), mesh).numpy()
+                     if is_sharded(spec_of(t)) else t.grad.numpy()
+                     for p, t in leaves}
+        with torch.inference_mode():
+            cache = llama.init_kv_cache(cfg, ids_t.shape[0], cache_len,
+                                        dtype=torch.float32, split=split.t)
+            cached, _ = llama.llama_forward(
+                llm, cfg, llama.embed_tokens(llm, ids_t, mesh), mask=mask_t,
+                kv_cache=cache, attn_impl="torch", mesh=mesh)
+            nxt = cached[:, -1].argmax(-1)
+            step, _ = llama.llama_forward(
+                llm, cfg, llama.embed_tokens(llm, nxt[:, None], mesh),
+                kv_cache=cache, attn_impl="torch", mesh=mesh)
+    finally:
+        pgather.all_gather_leaf = real
+    return {"t": split.t, "embeds": embeds.detach().numpy(),
+            "logits": logits.detach().numpy(), "grads": grads,
+            "cached": cached.numpy(), "step": step.numpy(),
+            "cache_heads": cache["k"].shape[3], "sums": sums,
+            "tensor_gathers": sum(calls)}
+
+
 TASKS = {f.__name__: f for f in (placement, train_steps,
                                  checkpoint_round_trip, serve, speculative,
                                  batched, vla_actions, speculative_guards,
-                                 ring, oom_risk)}
+                                 ring, oom_risk, split_forward)}
