@@ -30,8 +30,8 @@ rank's blocks (``parallel.shard_params``). Under a ``tensor`` axis of t >
 layer computes its own heads and MLP columns and sums its two partial
 outputs over ``tensor`` (``parallel/tensor.py``; each rank's KV cache
 holds its ``n_kv_heads / t`` heads, ``init_kv_cache(split=t)``), and the
-embedding and the logits are vocab-parallel; else each layer gathers its
-full weights where it starts. The gathers run inside the remat region,
+embedding, the logits and the chunked loss are vocab-parallel; else each
+layer gathers its full weights where it starts. The gathers run inside the remat region,
 so a rematerialized backward gathers again. The losses divide global
 sums by global counts (``parallel/gather.py``).
 """
@@ -55,9 +55,10 @@ from emmax_torch.ops.rope import apply_rope, rope_cos_sin
 from emmax_torch.parallel.constraints import constrain_batch_sharded
 from emmax_torch.parallel.gather import gather, global_mean, layer_blocks
 from emmax_torch.parallel.sharding import sliced
-from emmax_torch.parallel.tensor import (WHOLE, DecoderSplit, data_gather,
+from emmax_torch.parallel.tensor import (WHOLE, Split, data_gather,
                                          decoder_split, vocab_embed,
-                                         vocab_logits, vocab_split)
+                                         vocab_logits, vocab_nll,
+                                         vocab_split)
 
 Params = Dict[str, Any]
 IGNORE_INDEX = -100
@@ -184,7 +185,7 @@ def layer_slice(layers: Params, i: int) -> Params:
     """Layer ``i`` of the stacked layer params, as views. Int4 weights stay
     stacked with the index attached, for the kernel to read in place.
     Each dense block keeps the stacked leaf's spec, for
-    ``DecoderSplit.weights`` to gather where the layer runs; quantized
+    ``Split.weights`` to gather where the layer runs; quantized
     leaves are replicated and read as they are."""
     out = {}
     for key, val in layers.items():
@@ -244,7 +245,7 @@ def remat_call(remat: Remat, fn, *args):
 
 
 def attn_mlp_tail(h: torch.Tensor, attn_flat: torch.Tensor, p: Params,
-                  eps: float, split: DecoderSplit = WHOLE) -> torch.Tensor:
+                  eps: float, split: Split = WHOLE) -> torch.Tensor:
     """The output projection's residual, then the gated MLP's: the part
     of a layer after attention (``attn_flat`` [B, L, heads * hd]); under
     a ``split`` each product is this rank's block, summed over
@@ -256,7 +257,7 @@ def attn_mlp_tail(h: torch.Tensor, attn_flat: torch.Tensor, p: Params,
 
 
 def _layer(h, p, cos, sin, kv_mask, cfg: LlamaConfig, attn_impl: str,
-           split: DecoderSplit = WHOLE):
+           split: Split = WHOLE):
     """One decoder layer (uncached path, causal)."""
     p = split.weights(p)
     B, L, _ = h.shape
@@ -324,7 +325,7 @@ def cache_update(cache: Params, i: int, t0, k_new: torch.Tensor,
 
 def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
                   cfg: LlamaConfig, attn_impl: str, chunk_mask=None,
-                  split: DecoderSplit = WHOLE):
+                  split: Split = WHOLE):
     """One decoder layer that writes its K/V into the cache at ``t0`` (host
     int or per-row [B] cursors) and attends over the layer's whole cache
     (the chunk's own slots under ``chunk_mask`` where one is given)."""
@@ -482,12 +483,17 @@ def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
     lm_head matmul at a time). ``lm_head`` is a matrix (dense or
     quantized) or Phi's biased ``{"kernel", "bias"}``. Returns (loss,
     preds [B, L]); under a ``mesh`` the loss is the global batch's
-    (``global_mean``)."""
+    (``global_mean``). A dense lm_head whose vocab is split on ``tensor``
+    gives each chunk's loss and preds from the rank's vocab block
+    (``parallel.tensor.vocab_nll``)."""
     if isinstance(lm_head, dict) and "kernel" in lm_head:
         kernel, bias = gather(lm_head["kernel"], mesh), lm_head["bias"]
 
         def head(hb):
             return mm(hb, kernel) + bias
+    elif vocab_split(lm_head, -1, mesh):
+        block = data_gather(lm_head, mesh)
+        head = None
     else:
         lm_head = gather(lm_head, mesh)
 
@@ -503,15 +509,18 @@ def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,
         shifted = F.pad(shifted, (0, pad), value=IGNORE_INDEX)
 
     def one_block(hb, lb):
+        if head is None:
+            valid = lb != IGNORE_INDEX
+            return (*vocab_nll(hb, block, lb, valid, mesh), valid.sum())
         logits = head(hb).float()
-        return (*_nll_sum(logits, lb),
-                logits.argmax(dim=-1).to(torch.int32))
+        nll, count = _nll_sum(logits, lb)
+        return nll, logits.argmax(dim=-1).to(torch.int32), count
 
     loss_sum = h.new_zeros((), dtype=torch.float32)
     count = 0
     preds = []
     for c in range(0, L + pad, chunk):
-        ls, cnt, pr = remat_call("full", one_block, h[:, c:c + chunk],
+        ls, pr, cnt = remat_call("full", one_block, h[:, c:c + chunk],
                                  shifted[:, c:c + chunk])
         loss_sum = loss_sum + ls
         count = count + cnt

@@ -18,7 +18,13 @@ helpers; ``remat``, ``logits_dtype``, ``return_hidden`` (for
 ``chunk_attn_mask`` (speculative tree verification; it needs a cache).
 Quantized weights (``serving/quant.py``) go through ``llama.mm``, int4
 through the int4 kernel, and each bias is added after the product, as
-the JAX package adds it. ``mesh`` as in ``llama_forward``.
+the JAX package adds it. ``mesh`` as in ``llama_forward``, but under a
+``tensor`` split (``parallel.tensor.decoder_split``) only the attention is
+split, as the JAX package's rules place Phi-2: the rank's heads from its
+``wq`` / ``wk`` / ``wv`` columns and its slices of ``bq`` / ``bk`` /
+``bv`` (its cache holds ``n_kv_heads / t`` heads), ``wo``'s rows summed
+over ``tensor``, then ``bo`` once; the MLP (``w1`` / ``w2`` replicated)
+and the lm_head run whole on every rank.
 
 Without ``positions`` a cached call's RoPE positions start at the cache's
 cursor, as ``llama_forward``'s do; the JAX package's Phi starts them at 0
@@ -42,7 +48,8 @@ from emmax_torch.ops.attention import multi_head_attention
 from emmax_torch.ops.norms import layer_norm
 from emmax_torch.ops.rope import apply_partial_rope, rope_cos_sin
 from emmax_torch.parallel.constraints import constrain_batch_sharded
-from emmax_torch.parallel.gather import gather, gather_tree
+from emmax_torch.parallel.gather import gather
+from emmax_torch.parallel.tensor import WHOLE, Split, decoder_split
 
 Params = Dict[str, Any]
 
@@ -115,50 +122,55 @@ def _linear(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
     return mm(x, w) + b
 
 
-def _qkv(x, p, cos, sin, cfg: PhiConfig):
-    """q [B, L, H, hd] and k, v [B, L, KV, hd], q and k partially rotated."""
+def _qkv(x, p, cos, sin, cfg: PhiConfig, split: Split = WHOLE):
+    """q [B, L, H, hd] and k, v [B, L, KV, hd] of this rank's heads, q and
+    k partially rotated."""
     B, L, _ = x.shape
-    q = _linear(x, p["wq"], p["bq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
-    k = _linear(x, p["wk"], p["bk"]).reshape(B, L, cfg.n_kv_heads,
-                                             cfg.head_dim)
-    v = _linear(x, p["wv"], p["bv"]).reshape(B, L, cfg.n_kv_heads,
-                                             cfg.head_dim)
+    H, KV = split.heads(cfg)
+    x = split.enter(x)
+    q = _linear(x, p["wq"], split.cols(p["bq"])).reshape(B, L, H,
+                                                         cfg.head_dim)
+    k = _linear(x, p["wk"], split.cols(p["bk"])).reshape(B, L, KV,
+                                                         cfg.head_dim)
+    v = _linear(x, p["wv"], split.cols(p["bv"])).reshape(B, L, KV,
+                                                         cfg.head_dim)
     return (apply_partial_rope(q, cos, sin, cfg.rotary_dim),
             apply_partial_rope(k, cos, sin, cfg.rotary_dim), v)
 
 
-def _residual(h, x, attn, p):
-    """The parallel residual: ``h + wo(attn) + mlp(x)``."""
-    B, L, _ = h.shape
-    attn = _linear(attn.reshape(B, L, -1), p["wo"], p["bo"])
+def _residual(h, x, attn, p, split: Split = WHOLE):
+    """The parallel residual: ``h + wo(attn) + mlp(x)``; ``wo``'s partial
+    products summed over ``tensor`` before ``bo``, the MLP whole."""
+    B, L = h.shape[:2]
+    attn = split.reduce(mm(attn.reshape(B, L, -1), p["wo"])) + p["bo"]
     mlp = _linear(gelu_new(_linear(x, p["w1"], p["b1"])), p["w2"], p["b2"])
     return h + attn + mlp
 
 
 def _layer(h, p, cos, sin, kv_mask, cfg: PhiConfig, attn_impl: str,
-           mesh=None):
+           split: Split = WHOLE):
     """One decoder layer (uncached path, causal)."""
-    p = gather_tree(p, mesh)
+    p = split.weights(p)
     x = layer_norm(h, p["ln_scale"], p["ln_bias"], cfg.norm_eps)
-    q, k, v = _qkv(x, p, cos, sin, cfg)
+    q, k, v = _qkv(x, p, cos, sin, cfg, split)
     attn = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=True,
                                 impl=attn_impl)
-    return _residual(h, x, attn, p)
+    return _residual(h, x, attn, p, split)
 
 
 def _cached_layer(h, p, cos, sin, cache, i: int, t0, slot_mask,
                   cfg: PhiConfig, attn_impl: str, chunk_mask=None,
-                  mesh=None):
+                  split: Split = WHOLE):
     """One decoder layer that writes its K/V into the cache at ``t0`` and
     attends over the layer's whole cache (``llama._cached_layer``)."""
-    p = gather_tree(p, mesh)
+    p = split.weights(p)
     x = layer_norm(h, p["ln_scale"], p["ln_bias"], cfg.norm_eps)
-    q, k_new, v_new = _qkv(x, p, cos, sin, cfg)
+    q, k_new, v_new = _qkv(x, p, cos, sin, cfg, split)
     k_c, v_c = cache_update(cache, i, t0, k_new, v_new, h.dtype)
     attn = multi_head_attention(q, k_c, v_c, kv_mask=slot_mask, causal=True,
                                 q_offset=t0, impl=attn_impl,
                                 chunk_mask=chunk_mask)
-    return _residual(h, x, attn, p)
+    return _residual(h, x, attn, p, split)
 
 
 def phi_forward(params: Params, cfg: PhiConfig, inputs_embeds: torch.Tensor,
@@ -177,20 +189,21 @@ def phi_forward(params: Params, cfg: PhiConfig, inputs_embeds: torch.Tensor,
                          "verify against an existing context)")
     positions = default_positions(inputs_embeds, mask, positions, kv_cache)
     cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta)
+    split = decoder_split(params, cfg, mesh)
     per_layer = layer_list(params["layers"], cfg.n_layers, mesh)
     h = inputs_embeds
     if kv_cache is None:
         h = constrain_batch_sharded(h)
         for p in per_layer:
             h = remat_call(remat, _layer, h, p, cos, sin, mask, cfg,
-                           attn_impl, mesh)
+                           attn_impl, split)
     else:
         t0 = kv_cache["len"]
         mark_slots(kv_cache, mask, inputs_embeds.shape[1])
         for i, p in enumerate(per_layer):
             h = _cached_layer(h, p, cos, sin, kv_cache, i, t0,
                               kv_cache["mask"], cfg, attn_impl,
-                              chunk_attn_mask, mesh)
+                              chunk_attn_mask, split)
         kv_cache["len"] = t0 + inputs_embeds.shape[1]
 
     h = layer_norm(h, params["final_norm"]["scale"],

@@ -3,6 +3,13 @@
 The Emma-X flagship uses ``fused-gelu-mlp``: fused_dim -> 4 * fused_dim ->
 llm_dim -> llm_dim with exact GELU between layers. f32 tower features
 against bf16 weights compute in f32, as in JAX.
+
+Under a ``mesh`` the kernels are this rank's blocks. A layer whose kernel
+is split on ``tensor`` by columns (``parallel.tensor.column_split``; the
+JAX package's rules place every projector kernel so) computes the rank's
+columns, with its slice of the replicated bias and the GELU on them, and
+the ranks' columns are then put together; any other layer gathers its
+kernel where it is used.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from torch import nn
 
 from emmax_torch.models.tree import ParamTree
 from emmax_torch.models.vit import linear
-from emmax_torch.parallel.gather import gather
+from emmax_torch.parallel.tensor import column_split
 
 Params = Dict[str, Any]
 
@@ -51,12 +58,15 @@ def init_projector_params(generator: torch.Generator, arch_specifier: str,
 
 def projector_forward(params: Params, x: torch.Tensor,
                       mesh=None) -> torch.Tensor:
-    """``mesh``: the kernels are this rank's blocks, gathered at use."""
+    """``mesh``: the kernels are this rank's blocks (module docstring)."""
     layers = params["layers"]
     for i, layer in enumerate(layers):
-        x = linear(x, gather(layer["kernel"], mesh), layer["bias"])
+        split = column_split(layer["kernel"], mesh)
+        x = linear(split.enter(x), split.weight(layer["kernel"]),
+                   split.cols(layer["bias"]))
         if i + 1 < len(layers):
             x = F.gelu(x)
+        x = split.gather(x)
     return x
 
 

@@ -15,9 +15,15 @@ of ``emmax_tpu/models/vit.py``.
   top-left ``grid * patch`` pixels (27 x 27 patches over 378 px);
 - dtypes follow JAX's promotion: f32 pixels against bf16 weights run the
   tower in f32 (each weight is upcast where it is used);
-- under a ``mesh`` the params are this rank's blocks and each block's
-  weights (and the patch-embedding kernel) are gathered where they are
-  used (``parallel/gather.py``).
+- under a ``mesh`` the params are this rank's blocks. Where the tower
+  splits over ``tensor`` (``parallel.tensor.tower_split``: the heads
+  divide by its size t and the matmul weights are ``tensor`` blocks) each
+  rank computes its share: the patch embedding's columns, put together
+  before the bias; its ``n_heads / t`` heads of q, k and v, exchanged out
+  of the ranks' ``wqkv`` column blocks; ``wo`` and ``w2`` rows, summed
+  before their biases and layer scales; ``w1`` columns with its slice of
+  ``b1``. Else each block's weights (and the patch-embedding kernel) are
+  gathered where they are used (``parallel/gather.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from emmax_torch.models.tree import ParamTree
 from emmax_torch.ops.attention import multi_head_attention
 from emmax_torch.ops.norms import layer_norm
 from emmax_torch.parallel.constraints import constrain_batch_sharded
-from emmax_torch.parallel.gather import gather, gather_tree, layer_blocks
+from emmax_torch.parallel.gather import layer_blocks
+from emmax_torch.parallel.tensor import WHOLE, Split, tower_split
 
 Params = Dict[str, Any]
 
@@ -128,11 +135,25 @@ def init_vit_params(generator: torch.Generator, cfg: ViTConfig,
     return params
 
 
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as ``jnp`` computes it."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` in the promoted dtype, as ``jnp`` computes it."""
-    dtype = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dtype) @ w.to(dtype) + b.to(dtype)
+    y = _dot(x, w)
+    return y + b.to(y.dtype)
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               split: Split = WHOLE) -> torch.Tensor:
+    """:func:`linear` of a row-parallel block: the partial products summed
+    over ``tensor`` before the (replicated) bias."""
+    y = split.reduce(_dot(x, w))
+    return y + b.to(y.dtype)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -146,11 +167,12 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def _embed(params: Params, cfg: ViTConfig, images: torch.Tensor,
-           mesh=None) -> torch.Tensor:
+           split: Split = WHOLE) -> torch.Tensor:
     images = constrain_batch_sharded(images)
     x = constrain_batch_sharded(patchify(images, cfg.patch_size))
-    x = linear(x, gather(params["patch_embed"]["kernel"], mesh),
-               params["patch_embed"]["bias"])
+    x = split.gather(_dot(split.enter(x),
+                          split.weight(params["patch_embed"]["kernel"])))
+    x = x + params["patch_embed"]["bias"].to(x.dtype)
     B = x.shape[0]
     if cfg.class_token:
         cls = params["cls_token"].expand(B, 1, cfg.dim).to(x.dtype)
@@ -168,25 +190,29 @@ def _embed(params: Params, cfg: ViTConfig, images: torch.Tensor,
 
 
 def _block(h: torch.Tensor, p: Params, cfg: ViTConfig,
-           attn_impl: str, mesh=None) -> torch.Tensor:
-    p = gather_tree(p, mesh)
-    B, L, D = h.shape
-    x = layer_norm(h, p["norm1_scale"], p["norm1_bias"], cfg.norm_eps)
-    qkv = linear(x, p["wqkv"], p["bqkv"])
-    q, k, v = (t.reshape(B, L, cfg.n_heads, cfg.head_dim)
+           attn_impl: str, split: Split = WHOLE) -> torch.Tensor:
+    p = split.weights(p)
+    B, L, _ = h.shape
+    H, _ = split.heads(cfg)
+    x = split.enter(layer_norm(h, p["norm1_scale"], p["norm1_bias"],
+                               cfg.norm_eps))
+    qkv = split.exchange(linear(x, p["wqkv"], split.cols(p["bqkv"])), 3)
+    q, k, v = (t.reshape(B, L, H, cfg.head_dim)
                for t in qkv.chunk(3, dim=-1))
-    attn = multi_head_attention(q, k, v, impl=attn_impl).reshape(B, L, D)
-    attn = linear(attn, p["wo"], p["bo"])
+    attn = multi_head_attention(q, k, v, impl=attn_impl)
+    attn = row_linear(attn.reshape(B, L, H * cfg.head_dim), p["wo"],
+                      p["bo"], split)
     if cfg.layerscale:
         attn = attn * p["ls1"].to(attn.dtype)
     h = h + attn
-    x = layer_norm(h, p["norm2_scale"], p["norm2_bias"], cfg.norm_eps)
-    x = linear(x, p["w1"], p["b1"])
+    x = split.enter(layer_norm(h, p["norm2_scale"], p["norm2_bias"],
+                               cfg.norm_eps))
+    x = linear(x, p["w1"], split.cols(p["b1"]))
     if cfg.quick_gelu:
         x = x * torch.sigmoid(1.702 * x)
     else:
         x = F.gelu(x, approximate="tanh" if cfg.gelu_tanh else "none")
-    x = linear(x, p["w2"], p["b2"])
+    x = row_linear(x, p["w2"], p["b2"], split)
     if cfg.layerscale:
         x = x * p["ls2"].to(x.dtype)
     return h + x
@@ -203,12 +229,13 @@ def vit_forward(params: Params, cfg: ViTConfig, images: torch.Tensor, *,
     """
     if num_blocks is None:
         num_blocks = cfg.depth - 1
-    h = constrain_batch_sharded(_embed(params, cfg, images, mesh))
+    split = tower_split(params, cfg, mesh)
+    h = constrain_batch_sharded(_embed(params, cfg, images, split))
     # unbound once: under autograd the stack's gradient is built once
     # (see ``llama.layer_list``)
     blocks = layer_blocks(params["blocks"], num_blocks, mesh)
     for p in blocks:
-        h = _block(h, p, cfg, attn_impl, mesh)
+        h = _block(h, p, cfg, attn_impl, split)
     if final_norm:
         h = layer_norm(h, params["final_norm"]["scale"],
                        params["final_norm"]["bias"], cfg.norm_eps)

@@ -232,7 +232,7 @@ def all_gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         if e is None:
             continue
         if e == "tensor":
-            x = gather_axis(x.contiguous(), d, mesh, weight=True)
+            x = gather_axis(x.contiguous(), d, mesh, "gathered_bytes")
             continue
         xs = x.movedim(d, 0).contiguous()
         out = xs.new_empty((sizes[e] * xs.shape[0],) + xs.shape[1:])

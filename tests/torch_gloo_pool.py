@@ -298,12 +298,12 @@ def checkpoint_round_trip(params, batch, mesh_shape, run_dir):
             "file_absdiff": file_diff, "step": restored.step}
 
 
-def _tiny_engine_args(params, mesh_shape, vocab_size, quantize=None):
-    """(tiny config, this rank's tree, tokenizer, mesh) for the serving
-    tasks below: the whole tree on every rank when ``mesh_shape`` is
-    None."""
+def _tiny_engine_args(params, mesh_shape, vocab_size, quantize=None,
+                      cfg=None):
+    """(tiny config, or ``cfg``'s (``_vlm_config``), this rank's tree,
+    tokenizer, mesh) for the serving tasks below: the whole tree on every
+    rank when ``mesh_shape`` is None."""
     from emmax_torch.bridge import params_from_numpy
-    from emmax_torch.models.vlm import tiny_vlm_config
     from emmax_torch.parallel import shard_params
     from emmax_torch.serving.quant import quantize_vlm_params
     from emmax_torch.vla.tokenizer import ByteLevelTokenizer
@@ -314,18 +314,19 @@ def _tiny_engine_args(params, mesh_shape, vocab_size, quantize=None):
     mesh = _mesh(mesh_shape) if mesh_shape is not None else None
     if mesh is not None:
         tparams = shard_params(tparams, mesh)
-    return (tiny_vlm_config(vocab_size=vocab_size), tparams,
+    return (_vlm_config(cfg, vocab_size), tparams,
             ByteLevelTokenizer(vocab_size), mesh)
 
 
 def serve(params, pixels, prompt, mesh_shape=None, *, vocab_size=512,
-          max_new=8, quantize=None):
-    """Greedy tokens of the tiny VLM's ``ServingEngine`` (sharded on the
-    mesh, or unsharded on every rank when ``mesh_shape`` is None)."""
+          max_new=8, quantize=None, cfg=None):
+    """Greedy tokens of the tiny VLM's (or ``cfg``'s) ``ServingEngine``
+    (sharded on the mesh, or unsharded on every rank when ``mesh_shape``
+    is None)."""
     from emmax_torch.serving.engine import GenerateOptions, ServingEngine
 
     cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
-                                                vocab_size, quantize)
+                                                vocab_size, quantize, cfg)
     engine = ServingEngine(cfg, tparams, tok,
                            options=GenerateOptions(eos_id=tok.eos_id),
                            device="cpu", mesh=mesh)
@@ -457,30 +458,55 @@ def oom_risk(params, mesh_shape, hbm_bytes):
     return _spec_bf16_oom_risk(local, hbm_bytes)
 
 
+def _vlm_config(cfg, vocab_size=512):
+    """The tiny VLM (``cfg`` None) or the one ``cfg`` describes:
+    ``{"vision": [(name, ViTConfig kwargs)], "phi": PhiConfig kwargs}``."""
+    from emmax_torch.models.phi import PhiConfig
+    from emmax_torch.models.vit import ViTConfig
+    from emmax_torch.models.vlm import VLMConfig, tiny_vlm_config
+
+    if cfg is None:
+        return tiny_vlm_config(vocab_size=vocab_size)
+    return VLMConfig(vision=tuple((n, ViTConfig(**kw))
+                                  for n, kw in cfg["vision"]),
+                     llm=PhiConfig(**cfg["phi"]))
+
+
+def _full_grads(leaves, mesh):
+    """{path: the whole gradient} of (path, leaf) pairs, each block's
+    gradient gathered back to the whole leaf; a leaf the forward did not
+    read (a tower's final norm) has none."""
+    from emmax_torch.parallel.sharding import (all_gather_leaf, is_sharded,
+                                               spec_of)
+
+    return {p: (all_gather_leaf(t.grad, spec_of(t), mesh)
+                if is_sharded(spec_of(t)) else t.grad).numpy()
+            for p, t in leaves if t.grad is not None}
+
+
 def split_forward(params, ids, mask, grad_w, mesh_shape, *, vocab_size=512,
-                  cache_len=32):
-    """The tiny decoder (fp32) on the mesh, from token ids: the embedded
-    rows, the uncached logits, the gradient of ``sum(logits * grad_w)``
-    for every decoder leaf (each block gathered to the whole leaf; None
-    on a mesh with data axes, where the ranks would sum the same batch's
-    gradients), the
-    logits of a cached prefill and of one decode step after it, this
-    rank's cache heads, and the split's counts: collectives over
-    ``tensor`` in the uncached forward and ``all_gather_leaf`` calls over
-    ``tensor`` in all the forwards."""
+                  cache_len=32, cfg=None):
+    """The tiny decoder (fp32; Phi-2's where ``cfg`` names one) on the
+    mesh, from token ids: the embedded rows, the uncached logits, the
+    gradient of ``sum(logits * grad_w)`` for every decoder leaf (each block
+    gathered to the whole leaf; None on a mesh with data axes, where the
+    ranks would sum the same batch's gradients), the logits of a cached
+    prefill and of one decode step after it, this rank's cache heads, and
+    the split's counts: collectives over ``tensor`` in the uncached
+    forward and ``all_gather_leaf`` calls over ``tensor`` in all the
+    forwards."""
     import torch
 
     from emmax_torch.bridge import params_from_numpy
     from emmax_torch.models import llama
     from emmax_torch.models.tree import leaves_with_path
-    from emmax_torch.models.vlm import tiny_vlm_config
+    from emmax_torch.models.vlm import llm_apply
     from emmax_torch.parallel import gather as pgather
     from emmax_torch.parallel import shard_params
     from emmax_torch.parallel import tensor as ptensor
-    from emmax_torch.parallel.sharding import (all_gather_leaf, data_extent,
-                                               is_sharded, spec_of)
+    from emmax_torch.parallel.sharding import data_extent
 
-    cfg = tiny_vlm_config(vocab_size=vocab_size).llm
+    cfg = _vlm_config(cfg, vocab_size).llm
     mesh = _mesh(mesh_shape)
     llm = shard_params(params_from_numpy(params), mesh)["llm"]
     split = ptensor.decoder_split(llm, cfg, mesh)
@@ -498,23 +524,21 @@ def split_forward(params, ids, mask, grad_w, mesh_shape, *, vocab_size=512,
                   leaves_with_path(llm)]
         ptensor.reset_counts()
         embeds = llama.embed_tokens(llm, ids_t, mesh)
-        logits, _ = llama.llama_forward(llm, cfg, embeds, mask=mask_t,
-                                        attn_impl="torch", mesh=mesh)
+        logits, _ = llm_apply(llm, cfg, embeds, mask=mask_t,
+                              attn_impl="torch", mesh=mesh)
         sums = ptensor.counts["sums"]
         grads = None
         if data_extent(mesh) == 1:      # every rank holds the whole batch
             (logits * _tensors(grad_w)).sum().backward()
-            grads = {p: all_gather_leaf(t.grad, spec_of(t), mesh).numpy()
-                     if is_sharded(spec_of(t)) else t.grad.numpy()
-                     for p, t in leaves}
+            grads = _full_grads(leaves, mesh)
         with torch.inference_mode():
             cache = llama.init_kv_cache(cfg, ids_t.shape[0], cache_len,
                                         dtype=torch.float32, split=split.t)
-            cached, _ = llama.llama_forward(
+            cached, _ = llm_apply(
                 llm, cfg, llama.embed_tokens(llm, ids_t, mesh), mask=mask_t,
                 kv_cache=cache, attn_impl="torch", mesh=mesh)
             nxt = cached[:, -1].argmax(-1)
-            step, _ = llama.llama_forward(
+            step, _ = llm_apply(
                 llm, cfg, llama.embed_tokens(llm, nxt[:, None], mesh),
                 kv_cache=cache, attn_impl="torch", mesh=mesh)
     finally:
@@ -526,7 +550,69 @@ def split_forward(params, ids, mask, grad_w, mesh_shape, *, vocab_size=512,
             "tensor_gathers": sum(calls)}
 
 
+def split_encode(params, pixels, grad_w, mesh_shape, *, cfg=None):
+    """``encode_images`` of the tiny VLM (fp32) on the mesh: the
+    features, each tower's split, the counts over ``tensor`` (sums,
+    exchanges, weight bytes gathered) and, where every rank holds the
+    whole batch, the gradient of ``sum(features * grad_w)`` for every
+    tower and projector leaf (each block gathered to the whole leaf)."""
+    from emmax_torch.bridge import params_from_numpy
+    from emmax_torch.models.tree import leaves_with_path
+    from emmax_torch.models.vlm import encode_images
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.parallel import tensor as ptensor
+    from emmax_torch.parallel.sharding import data_extent
+
+    vcfg = _vlm_config(cfg)
+    mesh = _mesh(mesh_shape)
+    tree = shard_params(params_from_numpy(params), mesh)
+    leaves = [(p, t.requires_grad_()) for p, t in leaves_with_path(
+        {"vision": tree["vision"], "projector": tree["projector"]})]
+    ptensor.reset_counts()
+    feats = encode_images(tree, vcfg, _tensors(pixels), attn_impl="torch",
+                          mesh=mesh)
+    counts = dict(ptensor.counts)
+    grads = None
+    if data_extent(mesh) == 1:
+        (feats * _tensors(grad_w)).sum().backward()
+        grads = _full_grads(leaves, mesh)
+    return {"feats": feats.detach().numpy(), "counts": counts,
+            "towers_t": [ptensor.tower_split(tree["vision"][n], v, mesh).t
+                         for n, v in vcfg.vision],
+            "grads": grads}
+
+
+def split_ce(h, lm_head, labels, mesh_shape, *, chunk=5):
+    """``chunked_ce_loss_and_preds`` on the mesh from the global ``h`` and
+    ``labels`` (each rank its rows) and ``lm_head`` placed as the decoder's
+    (vocab on ``tensor``): the loss, this rank's preds, the weight bytes
+    gathered over ``tensor``, the sums over it, and where every rank holds
+    the whole batch the gradients of the loss for ``h`` and the lm_head."""
+    from emmax_torch.models.llama import chunked_ce_loss_and_preds
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.parallel import tensor as ptensor
+    from emmax_torch.parallel.sharding import batch_rows, data_extent
+
+    mesh = _mesh(mesh_shape)
+    head = shard_params({"llm": {"lm_head": _tensors(lm_head)}},
+                        mesh)["llm"]["lm_head"].requires_grad_()
+    rows = batch_rows({"h": _tensors(h), "labels": _tensors(labels)}, mesh)
+    hb = rows["h"].requires_grad_()
+    ptensor.reset_counts()
+    loss, preds = chunked_ce_loss_and_preds(hb, head, rows["labels"],
+                                            chunk=chunk, mesh=mesh)
+    out = {"loss": float(loss), "preds": preds.numpy(),
+           "sums": ptensor.counts["sums"]}
+    loss.backward()
+    out["gathered_bytes"] = ptensor.counts["gathered_bytes"]
+    if data_extent(mesh) == 1:
+        out["grads"] = {"h": hb.grad.numpy(),
+                        **_full_grads([("lm_head", head)], mesh)}
+    return out
+
+
 TASKS = {f.__name__: f for f in (placement, train_steps,
                                  checkpoint_round_trip, serve, speculative,
                                  batched, vla_actions, speculative_guards,
-                                 ring, oom_risk, split_forward)}
+                                 ring, oom_risk, split_forward,
+                                 split_encode, split_ce)}
