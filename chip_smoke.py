@@ -291,16 +291,24 @@ Phases, each raising on failure (the script then exits non-zero):
    the towers, the projector, the embedding, the logits and the chunked
    loss) on two ranks sharing the one card. First, in this process, the
    kernels at the split's shapes: the bf16 flash forward at the serving
-   prefill with 16 heads (one rank's 32 / 2) and at Phi-2's prefill with
-   16 (D 80), the fp32 flash forward at the DINOv2, SigLIP and CLIP-336
-   towers with 8 heads, and the paged kernel with 16 KV heads (int8
-   pages). Then two spawned processes join a gloo group of their own
-   (NCCL refuses two ranks on one device; gloo stages CUDA tensors
-   through the host) and the (1, 1, 2) mesh on "cuda" (and one on
-   "cpu"): (a) the tiny config (fp32, 4 heads, 2 a rank) through
-   ``ServingEngine``, ``PagedServingEngine(paged_attn="kernel")``,
+   prefill with 16 heads (one rank's 32 / 2), at Phi-2's prefill with
+   16 (D 80) and at Mistral's with 16 (D 128, Phi-2's query and cache
+   lengths), the fp32 flash forward at the DINOv2, SigLIP and CLIP-336
+   towers with 8 heads, and the paged kernel with 16 KV heads and with
+   Mistral's 4 KV heads at its group of 4 (int8 pages). Then two
+   processes, spawned before phase 13 so that their imports (and
+   ``torch._dynamo``, which the first checkpointed backward imports)
+   overlap it, join a gloo group of their own (NCCL refuses two ranks on
+   one device; gloo stages CUDA tensors through the host) and the (1, 1,
+   2) mesh on "cuda" (and one on "cpu"): (a) the tiny config (fp32, 4
+   heads, 2 a rank) through ``ServingEngine``,
+   ``PagedServingEngine(paged_attn="kernel")``,
    ``ContinuousServingEngine`` and ``SpeculativeEngine`` on the card and
-   on the CPU mesh, the same tokens (and steps); a tiny CLIP + Phi-2 VLM
+   on the CPU mesh, the same tokens (and steps); the tiny decoder with
+   ``TENSOR_GQA_KV`` KV heads (grouped-query: 1 KV head a rank, read by
+   its 2 query heads) through ``ServingEngine`` and the paged "kernel"
+   engine, the same tokens card and CPU, 1 KV head in each rank's cache
+   and pool, the paged kernel launched; a tiny CLIP + Phi-2 VLM
    (towers, projector and attention split): its features within
    ``TENSOR_TINY_RTOL`` of the CPU's, and the same tokens through
    ``ServingEngine`` and the slot-pool engine (the paged engine runs the
@@ -326,9 +334,17 @@ Phases, each raising on failure (the script then exits non-zero):
    one split encode and prefill with the same gates (23 fp32 launches at
    8 heads, 32 bf16 at 16, D 80; 33 + 2 x 23 + 1 + 2 = 82 sums, 23
    exchanges; cache heads 16; the attention's weights halved, the MLP and
-   lm_head whole). Request ms are printed but are not speed figures: two
-   ranks share one card and every sum crosses the host. One ``tensor``
-   line.
+   lm_head whole); (d) full-width ``mistral-v0.1+7b`` in bf16 (32 query
+   heads on 8 KV heads) built the same way: one split encode and prefill
+   with the same gates (23 fp32 launches at 8 heads, 32 bf16 at 16, D
+   128, after each rank's 4 KV heads are repeated by the unsplit group
+   of 4; 66 + 2 x 23 + 1 + 2 = 115 sums, 23 exchanges; cache heads 4;
+   every placed group, ``wk`` / ``wv`` too, halved). Phi-2 and Mistral
+   keep the 7B's rules but for the argmax, which may instead be a
+   near-tie of the unsplit logits where the split lands within twice
+   the unsplit's distance of an fp32 run (``_tensor_split_gates``).
+   Request ms are printed but are not speed figures: two ranks share one
+   card and every sum crosses the host. One ``tensor`` line.
 
 14. ``zoo``: the Prismatic backbones beyond Emma-X's (``models/
    materialize.py``) at full width and depth on seeded random weights made
@@ -362,6 +378,7 @@ JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import os
@@ -513,6 +530,9 @@ TENSOR_FEAT_RTOL = 1e-4
 TENSOR_TINY_RTOL = 1e-4
 TENSOR_TINY_VOCAB = 512
 TENSOR_CE_CHUNK = 8
+# the tiny grouped-query decoder's KV heads (4 query heads: 2 a KV head,
+# 1 KV head a rank at TENSOR_WORLD 2) and its decoder's seed
+TENSOR_GQA_KV, TENSOR_GQA_SEED = 2, 9
 
 
 T0 = time.perf_counter()
@@ -4806,6 +4826,7 @@ def _tensor_tiny(dev, mesh, cpu_mesh) -> dict:
     largest). Returns the card's run, its launches of the flash forward
     and the paged kernel in the engines, and the train step's launches by
     kernel and dtype."""
+    from emmax_torch.models.llama import init_llama_params
     from emmax_torch.models.load import load
     from emmax_torch.models.vlm import init_vlm_params
     from emmax_torch.ops import flash_attention as fa
@@ -4837,7 +4858,13 @@ def _tensor_tiny(dev, mesh, cpu_mesh) -> dict:
     prompts = [f"In: stack the {w} cups\nOut:"
                for w in ("red", "blue", "green")]
     opts = GenerateOptions(eos_id=tok.eos_id)
-    runs, feats, steps, parts = {}, {}, {}, {}
+    # the grouped-query decoder: the tiny one with TENSOR_GQA_KV KV heads
+    # (its own seeded weights) behind the same towers and projector
+    gcfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, n_kv_heads=TENSOR_GQA_KV))
+    gen.manual_seed(TENSOR_GQA_SEED)
+    gparams = {**params, "llm": init_llama_params(gen, gcfg.llm)}
+    runs, feats, steps, parts, gqa_launches = {}, {}, {}, {}, {}
     for where, device, m in (("cpu", "cpu", cpu_mesh), ("card", dev, mesh)):
         stamps = [time.perf_counter()]
         for k in (fa.KERNEL, pa.KERNEL):
@@ -4871,6 +4898,10 @@ def _tensor_tiny(dev, mesh, cpu_mesh) -> dict:
             out[name] = [list(map(int, done[r])) for r in rids]
             out[f"{name} kv heads"] = int(heads)
         stamps.append(time.perf_counter())
+        out["gqa"], gqa_launches[where] = _tensor_gqa(
+            gcfg, shard_params(gparams, m), tok, opts, prompts, vision,
+            device, m)
+        stamps.append(time.perf_counter())
         # the tiny Phi-2 VLM: towers, projector and attention split
         pblocks = shard_params(_tree_to(pparams, device), m)
         feats[where] = encode_frame(pblocks, pcfg, {
@@ -4896,22 +4927,29 @@ def _tensor_tiny(dev, mesh, cpu_mesh) -> dict:
         stamps.append(time.perf_counter())
         steps[where] = _tensor_train_step(cfg, params, where, device, m)
         stamps.append(time.perf_counter())
-        parts[where] = dict(zip(("llama engines", "phi", "train step"),
-                                np.diff(stamps).tolist()))
+        parts[where] = dict(zip(("llama engines", "gqa engines", "phi",
+                                 "train step"), np.diff(stamps).tolist()))
         runs[where] = out
     if runs["card"] != runs["cpu"]:
         raise AssertionError(f"tensor tiny: card {runs['card']} != CPU "
                              f"{runs['cpu']}")
     want = cfg.llm.n_kv_heads // TENSOR_WORLD
     pwant = pcfg.llm.n_kv_heads // TENSOR_WORLD
+    gwant = TENSOR_GQA_KV // TENSOR_WORLD
+    gqa = runs["card"]["gqa"]
     if (runs["card"]["split"] != TENSOR_WORLD
             or runs["card"]["paged kernel kv heads"] != want
             or runs["card"]["slot pool kv heads"] != want
             or runs["card"]["phi split"] != [TENSOR_WORLD] * 2
             or runs["card"]["phi slot pool kv heads"] != pwant
-            or not all(launches.values())):
+            or gqa["split"] != TENSOR_WORLD
+            or gqa["plain kv heads"] != [gwant]
+            or gqa["paged kernel kv heads"] != gwant
+            or not all(launches.values())
+            or not gqa_launches["card"]):
         raise AssertionError(f"tensor tiny: not split {runs['card']} or a "
-                             f"kernel not launched {launches}")
+                             f"kernel not launched {launches}, GQA paged "
+                             f"{gqa_launches}")
     feat_err = rel_err(feats["card"], feats["cpu"])[1]
     card, cpu = steps["card"], steps["cpu"]
     gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
@@ -4938,7 +4976,53 @@ def _tensor_tiny(dev, mesh, cpu_mesh) -> dict:
             and card["launches"] == want_step):
         raise AssertionError(f"tensor tiny train step / Phi features: "
                              f"{step}, launches want {want_step}")
-    return runs["card"], launches, step
+    return runs["card"], {**launches, "paged_attention_gqa": gqa_launches[
+        "card"]}, step
+
+
+def _tensor_gqa(cfg, blocks, tok, opts, prompts, vision, device, m):
+    """The tiny grouped-query decoder (4 query heads on ``TENSOR_GQA_KV``
+    KV heads) split on the mesh ``m``: ``ServingEngine``'s tokens and the
+    KV heads of each cache it builds, ``PagedServingEngine`` in
+    ``"kernel"`` mode (the paged kernel at the rank's KV heads and the
+    unsplit group) over three requests and its pool's KV heads; and the
+    paged kernel's launches in that run (0 on the CPU, whose tensors
+    take the plain version)."""
+    from emmax_torch.ops import paged_attention as pa
+    from emmax_torch.parallel.tensor import decoder_split
+    from emmax_torch.serving import engine as engine_mod
+    from emmax_torch.serving.engine import ServingEngine
+    from emmax_torch.serving.paged import PagedServingEngine
+
+    out = {"split": decoder_split(blocks["llm"], cfg.llm, m).t}
+    heads = []
+    real = engine_mod.init_kv_cache
+
+    def recorded(*args, **kw):
+        cache = real(*args, **kw)
+        heads.append(int(cache["k"].shape[3]))
+        return cache
+
+    engine_mod.init_kv_cache = recorded
+    try:
+        eng = ServingEngine(cfg, blocks, tok, options=opts, device=device,
+                            mesh=m)
+        out["plain"] = eng.generate_ids([prompts[0]], vision,
+                                        max_new_tokens=16)[0].tolist()
+    finally:
+        engine_mod.init_kv_cache = real
+    out["plain kv heads"] = heads
+    before = pa.KERNEL.launches
+    eng = PagedServingEngine(cfg, blocks, tok, num_slots=2, n_pages=24,
+                             page_size=16, max_pages_per_slot=8, burst=4,
+                             paged_attn="kernel", device=device, mesh=m)
+    rids = [eng.submit(p, vision, max_new_tokens=12) for p in prompts]
+    done = eng.run_until_complete()
+    out["paged kernel"] = [list(map(int, done[r])) for r in rids]
+    out["paged kernel kv heads"] = int(eng.pool["k"].shape[0])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, pa.KERNEL.launches - before
 
 
 def _placed_bytes(tree, specs) -> dict:
@@ -5179,16 +5263,56 @@ def _tensor_phi(dev, mesh, rank) -> dict:
     return out
 
 
-def _tensor_rank(rank: int, port: int, conn) -> None:
-    """One rank of ``tensor_phase``: its own gloo group over the two
-    processes, the (1, 1, 2) meshes, then the tiny configs and the
-    full-width runs; the result (or the traceback) goes back on
-    ``conn``."""
+def _tensor_mistral(dev, mesh, rank) -> dict:
+    """Full-width ``ZOO_MISTRAL`` (bf16, seed 0; 32 query heads on 8 KV
+    heads) split over the ranks (``_tensor_build``, with the fp32
+    yardstick): the split encode and prefill alone, each rank holding 4
+    KV heads that its 16 query heads read in groups of 4."""
+    frame = np.random.default_rng(29).integers(0, 256, (256, 256, 3),
+                                               dtype=np.uint8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = _tensor_split_prefill(dev, mesh, rank, _tensor_build(
+        dev, mesh, rank, ZOO_MISTRAL, frame, fp32_ref=True))
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _tensor_warm() -> float:
+    """Seconds to import what a rank's runs import and to run one
+    checkpointed backward on the CPU: ``torch.utils.checkpoint``'s first
+    call imports ``torch._dynamo``, seconds in each new process. The
+    ranks do it while earlier phases run (``spawn_tensor_ranks``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    t0 = time.perf_counter()
+    import emmax_torch.models.load  # noqa: F401
+    import emmax_torch.models.vla  # noqa: F401
+    import emmax_torch.serving.continuous  # noqa: F401
+    import emmax_torch.serving.paged  # noqa: F401
+    import emmax_torch.serving.speculative  # noqa: F401
+    import emmax_torch.training.train_step  # noqa: F401
+    from emmax_torch.parallel import make_mesh  # noqa: F401
+
+    x = torch.ones(4, requires_grad=True)
+    checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+    return time.perf_counter() - t0
+
+
+def _tensor_rank(rank: int, conn) -> None:
+    """One rank of ``tensor_phase``: started ahead of it, it warms its
+    imports (``_tensor_warm``) and waits for the phase's port (None: stop);
+    then its own gloo group over the two processes, the (1, 1, 2)
+    meshes, the tiny configs and the full-width runs; the result (or the
+    traceback) goes back on ``conn``."""
     import traceback
 
     import torch.distributed as dist
 
     try:
+        warm_s = _tensor_warm()
+        port = conn.recv()
+        if port is None:
+            return
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         # the ranks share the host's cores: each takes its share of
@@ -5206,7 +5330,8 @@ def _tensor_rank(rank: int, port: int, conn) -> None:
             cpu_mesh = make_mesh(shape, device_type="cpu")
             out = {"rank": rank, "backend": dist.get_backend(),
                    "world_size": dist.get_world_size(),
-                   "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+                   "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   "warm_s": warm_s}
             t0 = time.perf_counter()
             (out["tiny"], out["tiny_launches"],
              out["tiny_step"]) = _tensor_tiny(dev, mesh, cpu_mesh)
@@ -5219,6 +5344,11 @@ def _tensor_rank(rank: int, port: int, conn) -> None:
             t0 = time.perf_counter()
             out["phi"] = _tensor_phi(dev, mesh, rank)
             out["phi_s"] = time.perf_counter() - t0
+            gc.collect()                # the Phi-2 blocks
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out["mistral"] = _tensor_mistral(dev, mesh, rank)
+            out["mistral_s"] = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
         conn.send(("ok", out))
@@ -5287,12 +5417,13 @@ def _tensor_split_gates(cfg, ranks, key) -> list:
     return problems
 
 
-def _tensor_gates(cfg, phi_cfg, ranks) -> None:
+def _tensor_gates(cfg, phi_cfg, mistral_cfg, ranks) -> None:
     """The split's gates over both ranks' results (``tensor_phase``)."""
     t = TENSOR_WORLD
     r0 = ranks[0]["full"]
     problems = (_tensor_split_gates(cfg, ranks, "full")
-                + _tensor_split_gates(phi_cfg, ranks, "phi"))
+                + _tensor_split_gates(phi_cfg, ranks, "phi")
+                + _tensor_split_gates(mistral_cfg, ranks, "mistral"))
     for r in ranks:
         if r["backend"] != "gloo" or r["world_size"] != t:
             problems.append(f"rank {r['rank']}: group")
@@ -5307,11 +5438,30 @@ def _tensor_gates(cfg, phi_cfg, ranks) -> None:
         raise AssertionError(f"tensor: {problems}")
 
 
-def tensor_phase(dev) -> dict:
+def spawn_tensor_ranks() -> tuple:
+    """Start ``tensor_phase``'s ``TENSOR_WORLD`` rank processes (spawned,
+    daemons: they end with this process), which warm their imports
+    while the phases before it run: (pipes, processes)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    conns, procs = [], []
+    for rank in range(TENSOR_WORLD):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_tensor_rank, args=(rank, child),
+                           daemon=True)
+        proc.start()
+        child.close()
+        conns.append(parent)
+        procs.append(proc)
+    return conns, procs
+
+
+def tensor_phase(dev, started=None) -> dict:
     """Phase 13b: the split over ``tensor`` on two ranks sharing the one
     card (the module docstring): the kernels at the split's shapes here,
-    then the two spawned ranks and their gates."""
-    import multiprocessing
+    then the two ranks (``started`` by ``spawn_tensor_ranks``, else
+    spawned now) and their gates."""
     import socket
 
     from emmax_torch.models.materialize import get_vlm_config
@@ -5324,6 +5474,8 @@ def tensor_phase(dev) -> dict:
     torch.cuda.empty_cache()
     cfg = emma_x_vlm_config()
     phi_cfg = get_vlm_config(ZOO_PHI)
+    mistral_cfg = get_vlm_config(ZOO_MISTRAL)
+    mllm = mistral_cfg.llm
     llm = cfg.llm
     n_tok, bucket, Lq, S = prefill_shape(load_tokenizer(None),
                                          cfg.num_patches)
@@ -5336,6 +5488,10 @@ def tensor_phase(dev) -> dict:
     pLq = phi_cfg.num_patches + bucket
     pS = _round_up(pLq + MAX_NEW)
     pH = phi_cfg.llm.n_heads // TENSOR_WORLD
+    mLq = mistral_cfg.num_patches + bucket
+    mS = _round_up(mLq + MAX_NEW)
+    mKV = mllm.n_kv_heads // TENSOR_WORLD
+    mG = mllm.n_heads // mllm.n_kv_heads
     kernels = {
         "flash_fwd": check_flash(
             dev, gen, f"llama prefill per rank (tensor {TENSOR_WORLD}) B1 "
@@ -5356,28 +5512,31 @@ def tensor_phase(dev) -> dict:
             f"Lq{pLq} S{pS} H{pH} D{phi_cfg.llm.head_dim} causal "
             f"pad{bucket - n_tok}", 1, pLq, pS, pH, phi_cfg.llm.head_dim,
             True, bucket - n_tok, torch.bfloat16),
+        "flash_fwd_mistral": check_flash(
+            dev, gen, f"mistral prefill per rank (tensor {TENSOR_WORLD}) B1 "
+            f"Lq{mLq} S{mS} H{mllm.n_heads // TENSOR_WORLD} "
+            f"D{mllm.head_dim} causal pad{bucket - n_tok}", 1, mLq, mS,
+            mllm.n_heads // TENSOR_WORLD, mllm.head_dim, True, bucket - n_tok,
+            torch.bfloat16),
         "paged_attention": check_paged(
             dev, gen, f"B6 KV{llm.n_kv_heads // TENSOR_WORLD} G1 hd128 ps128 "
             f"MP6 len {lens} (per rank, tensor {TENSOR_WORLD})",
-            llm.n_kv_heads // TENSOR_WORLD, 1, torch.int8)}
+            llm.n_kv_heads // TENSOR_WORLD, 1, torch.int8),
+        "paged_attention_gqa": check_paged(
+            dev, gen, f"B6 KV{mKV} G{mG} hd128 ps128 MP6 len {lens} "
+            f"(mistral per rank, tensor {TENSOR_WORLD})", mKV, mG,
+            torch.int8)}
     for r in kernels.values():
         log("kernel " + json.dumps(r))
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
-    ctx = multiprocessing.get_context("spawn")
-    conns, procs = [], []
-    for rank in range(TENSOR_WORLD):
-        parent, child = ctx.Pipe()
-        proc = ctx.Process(target=_tensor_rank, args=(rank, port, child),
-                           daemon=True)
-        proc.start()
-        child.close()
-        conns.append(parent)
-        procs.append(proc)
+    conns, procs = started or spawn_tensor_ranks()
     ranks = [None] * TENSOR_WORLD
     try:
+        for conn in conns:
+            conn.send(port)
         deadline = time.monotonic() + TENSOR_TIMEOUT
         for rank, conn in enumerate(conns):
             while not conn.poll(0.5):
@@ -5397,11 +5556,11 @@ def tensor_phase(dev) -> dict:
                 proc.join(timeout=30)
         for conn in conns:
             conn.close()
-    r0, p0 = ranks[0]["full"], ranks[0]["phi"]
+    r0, p0, m0 = ranks[0]["full"], ranks[0]["phi"], ranks[0]["mistral"]
     log("tensor rank 0 " + json.dumps({
         k: {n: v for n, v in r[k].items() if n not in ("requests",)}
-        for r in ranks[:1] for k in ("full", "phi")}))
-    _tensor_gates(cfg, phi_cfg, ranks)
+        for r in ranks[:1] for k in ("full", "phi", "mistral")}))
+    _tensor_gates(cfg, phi_cfg, mistral_cfg, ranks)
     out = {"group": "gloo, opened by the phase (NCCL refuses two ranks on "
                     "one device)",
            "mesh": ranks[0]["mesh"], "kernels": kernels,
@@ -5416,14 +5575,18 @@ def tensor_phase(dev) -> dict:
            "requests": [{k: v for k, v in q.items()
                          if k not in ("text", "actions")}
                         for q in r0["requests"]],
-           "phi": {k: p0[k] for k in ("split", "unsplit", "logits_rel_err",
-                                      "features_rel_err", "argmax",
-                                      "unsplit_argmax", "unsplit_gap",
-                                      "rel_err_from_fp32", "peak_gb")},
+           **{key: {k: rec[k] for k in (
+               "split", "unsplit", "logits_rel_err", "features_rel_err",
+               "argmax", "unsplit_argmax", "unsplit_gap",
+               "rel_err_from_fp32", "peak_gb")}
+               for key, rec in (("phi", p0), ("mistral", m0))},
+           "mistral_peak_gb": [r["mistral"]["peak_gb"] for r in ranks],
            "build_s": [r["full"]["build_s"] for r in ranks],
            "phi_build_s": [r["phi"]["build_s"] for r in ranks],
+           "mistral_build_s": [r["mistral"]["build_s"] for r in ranks],
+           "warm_s": [r["warm_s"] for r in ranks],
            "rank_s": {k: [r[k] for r in ranks]
-                      for k in ("tiny_s", "full_s", "phi_s")},
+                      for k in ("tiny_s", "full_s", "phi_s", "mistral_s")},
            "peak_gb": [r["full"]["peak_gb"] for r in ranks]}
     out["phase_s"] = time.perf_counter() - t0
     return out
@@ -5922,11 +6085,13 @@ def main(argv) -> int:
                                   "vla_full_train_fp32": full, "rlds": rl}))
     log("eval summary " + json.dumps({k: ev[k] for k in (
         "tiny_s", "phase_s", "launches_eval")}))
+    # the tensor phase's ranks warm their imports while multigpu runs
+    started = spawn_tensor_ranks()
     log_phase("multigpu_phase")
     multi = multigpu_phase(dev, kernels, serving_kernels)
     log("multigpu " + json.dumps(multi))
     log_phase("tensor_phase")
-    tensor = tensor_phase(dev)
+    tensor = tensor_phase(dev, started)
     log("tensor " + json.dumps(tensor))
     log_phase("zoo_phase")
     zoo = zoo_phase(dev, kernels)
@@ -6040,6 +6205,15 @@ def main(argv) -> int:
                   "flash_fwd_phi", tensor["phi"]["split"]["flash_by_dtype"][
                       "bfloat16"],
                   "the split phi-2+3b prefill, per rank (H16 D80)"),
+              tensor_split_mistral=split_entry(
+                  "flash_fwd_mistral", tensor["mistral"]["split"][
+                      "flash_by_dtype"]["bfloat16"],
+                  "the split mistral-v0.1+7b prefill, per rank (H16 D128, "
+                  "4 KV heads repeated by 4)"),
+              tensor_split_mistral_towers=split_entry(
+                  None, tensor["mistral"]["split"]["flash_by_dtype"][
+                      "float32"], "the split mistral-v0.1+7b encode, per "
+                  "rank (CLIP-336, H8)", split_towers[2]),
               launches_tensor_tiny_step_by_dtype=tiny_step["flash_fwd"],
               zoo=zoo_of["flash_fwd"]),
         entry(by_name["flash_bwd_dq"], fa.DQ_KERNEL,
@@ -6129,7 +6303,13 @@ def main(argv) -> int:
               tensor_split=split_entry(
                   "paged_attention", tensor["tiny_launches_per_rank"][0][
                       "paged_attention"],
-                  "the tiny paged kernel engine at tensor 2, rank 0")),
+                  "the tiny paged kernel engines (4 KV heads, and the GQA "
+                  "decoder's 2) at tensor 2, rank 0"),
+              tensor_split_gqa=split_entry(
+                  "paged_attention_gqa", tensor["tiny_launches_per_rank"][0][
+                      "paged_attention_gqa"],
+                  "the tiny GQA paged kernel engine at tensor 2 (KV1 G2), "
+                  "rank 0; the shape is mistral-v0.1+7b's per rank")),
     ]
     log_phase("report")
     print(json.dumps({"kernels": entries}))

@@ -29,7 +29,10 @@ rank's blocks (``parallel.shard_params``). Under a ``tensor`` axis of t >
 1 ranks that the heads and KV heads divide, with dense weights, each
 layer computes its own heads and MLP columns and sums its two partial
 outputs over ``tensor`` (``parallel/tensor.py``; each rank's KV cache
-holds its ``n_kv_heads / t`` heads, ``init_kv_cache(split=t)``), and the
+holds its ``n_kv_heads / t`` heads, ``init_kv_cache(split=t)``, which its
+``n_heads / t`` query heads read in groups of ``n_heads / n_kv_heads``,
+as the whole decoder's do: attention repeats the rank's KV heads by that
+group), and the
 embedding, the logits and the chunked loss are vocab-parallel; else each
 layer gathers its full weights where it starts. The gathers run inside the remat region,
 so a rematerialized backward gathers again. The losses divide global
@@ -56,9 +59,9 @@ from emmax_torch.parallel.constraints import constrain_batch_sharded
 from emmax_torch.parallel.gather import gather, global_mean, layer_blocks
 from emmax_torch.parallel.sharding import sliced
 from emmax_torch.parallel.tensor import (WHOLE, Split, data_gather,
-                                         decoder_split, vocab_embed,
-                                         vocab_logits, vocab_nll,
-                                         vocab_split)
+                                         decoder_split, table_rows,
+                                         vocab_embed, vocab_logits,
+                                         vocab_nll, vocab_split)
 
 Params = Dict[str, Any]
 IGNORE_INDEX = -100
@@ -462,15 +465,18 @@ def lm_logits(h: torch.Tensor, lm_head, mesh=None) -> torch.Tensor:
 
 def embed_tokens(params: Params, input_ids: torch.Tensor,
                  mesh=None) -> torch.Tensor:
-    """Rows of the embedding table. An id past the table (the byte-level
-    tokenizer's pad id is its ``vocab_size``) reads the last row, as the
-    JAX package's clamped gather does; such slots are masked. A table
-    whose vocab is split on ``tensor`` is read vocab-parallel."""
+    """Rows of the embedding table, read as the JAX package's gather
+    reads them (``parallel.tensor.table_rows``): an id past the table (the
+    byte-level tokenizer's pad id is its ``vocab_size``) reads the last
+    row, and such slots are masked; a negative id counts from the end
+    (-1 the last row), and one below ``-vocab_size`` reads row 0. A
+    table whose vocab is split on ``tensor`` is read vocab-parallel, the
+    same rows."""
     table = params["embed"]
     if vocab_split(table, 0, mesh):
         return vocab_embed(data_gather(table, mesh), input_ids, mesh)
     table = gather(table, mesh)
-    return table[input_ids.clamp(max=table.shape[0] - 1)]
+    return table[table_rows(input_ids, table.shape[0])]
 
 
 def chunked_ce_loss_and_preds(h: torch.Tensor, lm_head, labels: torch.Tensor,

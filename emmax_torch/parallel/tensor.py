@@ -8,9 +8,13 @@ with ``t > 1`` computes only the rank's share:
 - the Llama-family decoder (:func:`decoder_split`, where its seven matmul
   weights are dense ``tensor`` blocks): column-parallel ``wq`` / ``wk`` /
   ``wv`` / ``w_gate`` / ``w_up``, the rank's ``n_heads / t`` query heads,
-  ``n_kv_heads / t`` KV heads (query head ``h`` reads KV head ``h //
-  (n_heads / n_kv_heads)``, so a rank's heads and their KV heads are one
-  contiguous block of each) and ``hidden_dim / t`` MLP columns; the
+  ``n_kv_heads / t`` KV heads and ``hidden_dim / t`` MLP columns. Under
+  grouped-query attention (``G = n_heads / n_kv_heads`` > 1, Mistral's 4)
+  query head ``h`` reads KV head ``h // G``; where ``t`` divides
+  ``n_kv_heads``, rank ``r``'s query heads ``[r H / t, (r + 1) H / t)``
+  read exactly its KV heads ``[r KV / t, (r + 1) KV / t)``, so the rank
+  attends its local KV heads ``[0, KV / t)`` at the same ``G``, the
+  split leaving the grouping unchanged. The
   input is Megatron's *f* (:func:`enter`: itself in the forward, its
   gradient summed over ``tensor`` in the backward); row-parallel ``wo`` /
   ``w_down``, the rank's rows, then one sum of the partial outputs over
@@ -30,8 +34,10 @@ with ``t > 1`` computes only the rank's share:
   rank's slice of ``b1``;
 - the projector (:func:`column_split` per layer): each kernel by columns
   with the bias slice and GELU on the local columns, then put together;
-- the embedding (vocab on ``tensor``): each rank reads the ids in its own
-  rows, zeros elsewhere, and the rows are summed over ``tensor``;
+- the embedding (vocab on ``tensor``): each id is read as JAX's gather
+  reads the whole table (a negative id from the end, then clamped), the
+  rank whose block holds the row gives it, the others zeros, and the
+  rows are summed over ``tensor``;
 - the logits (the lm_head's vocab on ``tensor``): each rank computes its
   ``V / t`` columns, put together on every rank (serving), or the loss
   from them without putting them together (:func:`vocab_nll`: the max
@@ -55,7 +61,8 @@ order, in fp32, on every rank: every rank holds the same bits, and the
 engines' host loops, which every rank runs on the same requests, take the
 same tokens.
 
-A decoder or tower whose heads (or KV heads) do not divide by ``t``, or
+A decoder or tower whose heads (or KV heads: a GQA decoder's 2 at t =
+4, whose groups would straddle ranks) do not divide by ``t``, or
 whose weights are quantized (``q4`` / ``q8`` leaves are replicated) or
 not ``tensor`` blocks, runs whole, gathered as before
 (``parallel/gather.py``); so does a projector layer whose kernel is not
@@ -262,15 +269,26 @@ def data_gather(x, mesh):
     return gather_axes(x, mesh, DATA_AXES)
 
 
+def table_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows of an ``n``-row table that JAX's gather ``table[ids]``
+    reads: a negative id counts from the end (``i + n``), then an id
+    still outside the table is clamped to its nearest row (-1 reads row
+    ``n - 1``, ``-n - 1`` row 0, ``n + 2`` row ``n - 1``)."""
+    return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+
+
 def vocab_embed(table: torch.Tensor, ids: torch.Tensor, mesh
                 ) -> torch.Tensor:
     """Rows of the embedding from this rank's vocab block ``table``
-    ``[V / t, D]`` (gathered over the data axes): an id in the block reads
-    its row, any other zeros, and the ranks' rows are summed. An id past
-    the table reads the last row, which lies on the last rank."""
+    ``[V / t, D]`` (gathered over the data axes): each id is read as JAX
+    reads it from the whole ``V``-row table (:func:`table_rows`), the
+    rank whose block holds that row gives it, the others zeros, and the
+    ranks' rows are summed. An id past the table reads the last row, on
+    the last rank; a negative one counts from the end of the whole
+    vocab."""
     t, r = _tensor(mesh)
     n = table.shape[0]
-    local = ids.clamp(max=n * t - 1) - r * n
+    local = table_rows(ids, n * t) - r * n
     inside = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
@@ -401,7 +419,17 @@ def decoder_split(llm_params: dict, cfg, mesh) -> Split:
     attention weight is a dense block split on ``tensor`` (columns for
     ``wq`` / ``wk`` / ``wv``, rows for ``wo``), and for the Llama family
     its three MLP weights too, else 1. Phi-2 (``w1`` / ``w2``, replicated
-    by the rules) splits its attention alone."""
+    by the rules) splits its attention alone.
+
+    Grouped-query attention (``G = n_heads / n_kv_heads``): rank ``r``
+    computes query heads ``[r H / t, (r + 1) H / t)`` and holds KV heads
+    ``[r KV / t, (r + 1) KV / t)``, its local ``[0, KV / t)``, which its
+    query heads read at the unsplit ``G`` (query head ``h`` reads KV head
+    ``h // G`` in both numberings). Where ``t`` does not divide
+    ``n_kv_heads`` (2 KV heads at t = 4) a rank's query heads would need
+    another rank's KV head, so the decoder runs whole, gathered, where
+    GSPMD splits it anyway: a difference by design, as for heads that do
+    not divide."""
     layers = llm_params["layers"]
     groups = ATTENTION if "w1" in layers else ATTENTION + MLP
     return _split(mesh, lambda t: not (cfg.n_heads % t or cfg.n_kv_heads % t),

@@ -20,9 +20,13 @@ JAX's turns NaN (ROADMAP Queue 3).
 At (1, 4, 2) and (1, 1, 2) (the first two ranks) the tiny decoder is split
 over ``tensor`` (``emmax_torch/parallel/tensor.py``): each rank's cache
 and page pool hold half the KV heads, and the tokens and steps are still
-JAX's.
+JAX's. The speculative and paged engines' split cases run the
+grouped-query decoder too (2 KV heads for the 4 query heads,
+``dataclasses.replace`` on both sides): 1 KV head in each rank's cache or
+page pool, which the kernel mode reads at the unsplit group of 2.
 """
 
+import dataclasses
 import functools
 import types
 
@@ -76,12 +80,16 @@ def _host(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _init(vocab_size, seed):
-    """JAX's tiny config and its parameter tree (the initializer's shapes,
-    from ``eval_shape``: nothing compiles) filled from a seeded numpy
+def _init(vocab_size, seed, n_kv_heads=None):
+    """JAX's tiny config (``n_kv_heads`` KV heads in its decoder where
+    given) and its parameter tree (the initializer's shapes, from
+    ``eval_shape``: nothing compiles) filled from a seeded numpy
     generator, ones for the norms' scales and N(0, 0.02) elsewhere; the
     same tree feeds JAX and the port."""
     cfg = tiny_vlm_config(vocab_size=vocab_size)
+    if n_kv_heads is not None:
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, n_kv_heads=n_kv_heads))
     shapes = jax.eval_shape(functools.partial(init_vlm_params, cfg=cfg),
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -111,8 +119,8 @@ def pool():
 
 
 @functools.lru_cache(maxsize=None)
-def _vocab512():
-    cfg, params = _init(512, 0)
+def _vocab512(n_kv_heads=None):
+    cfg, params = _init(512, 0, n_kv_heads)
     return types.SimpleNamespace(cfg=cfg, params=params, host=_host(params),
                                  tok=ByteLevelTokenizer(512),
                                  patches=_patches(params, cfg, 0))
@@ -126,10 +134,11 @@ def _jax_spec(params, s, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_spec_tokens(mesh_shape=None):
+def _jax_spec_tokens(mesh_shape=None, n_kv_heads=None):
     """JAX's ``tests/test_serving_sharded_engines.py`` speculative run
-    (draft_k 4, 12 new tokens): (tokens, steps)."""
-    s = _vocab512()
+    (draft_k 4, 12 new tokens; the decoder's ``n_kv_heads`` where given):
+    (tokens, steps)."""
+    s = _vocab512(n_kv_heads)
     params = (s.params if mesh_shape is None
               else shard_params(s.params, make_mesh(
                   mesh_shape,
@@ -150,18 +159,25 @@ def _check_ranks(results, want_tokens, want_steps=None, want_prefill=None):
                 assert call["prefill"] == want_prefill[c], (rank, c)
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 1, 8), (1, 4, 2), (1, 1, 2)],
-                         ids=str)
-def test_speculative_sharded_gives_jax_tokens(pool, mesh_shape):
-    s = _vocab512()
-    want, steps = _jax_spec_tokens()
+# the tiny decoder's 4 KV heads at three meshes (the ids they had before
+# the grouped-query case came) and the GQA decoder's 2 split at (1, 1, 2)
+SPEC_CASES = [pytest.param(s, None, id=str(s))
+              for s in [(1, 1, 8), (1, 4, 2), (1, 1, 2)]] + [
+    pytest.param((1, 1, 2), 2, id="gqa-(1, 1, 2)")]
+
+
+@pytest.mark.parametrize("mesh_shape,n_kv_heads", SPEC_CASES)
+def test_speculative_sharded_gives_jax_tokens(pool, mesh_shape, n_kv_heads):
+    s = _vocab512(n_kv_heads)
+    want, steps = _jax_spec_tokens(n_kv_heads=n_kv_heads)
     if mesh_shape == (1, 4, 2):
         got, got_steps = _jax_spec_tokens(mesh_shape)
         np.testing.assert_array_equal(got, want)
         assert got_steps == steps
     results = pool.run("speculative", params=s.host, patches=s.patches,
                        calls=[{"prompts": [PROMPT], "max_new": 12}],
-                       mesh_shape=mesh_shape, engine_kw={"draft_k": 4})
+                       mesh_shape=mesh_shape, engine_kw={"draft_k": 4},
+                       n_kv_heads=n_kv_heads)
     _check_ranks(results, [want], [steps], ["full"])
 
 
@@ -240,8 +256,8 @@ def _paged_requests(n):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_paged(mode, n_requests):
-    s = _vocab512()
+def _jax_paged(mode, n_requests, n_kv_heads=None):
+    s = _vocab512(n_kv_heads)
     eng = PagedServingEngine(s.cfg, s.params, s.tok, paged_attn=mode,
                              **PAGED_KW)
     vision = {"patches": jnp.asarray(s.patches)}
@@ -271,23 +287,32 @@ def test_paged_sharded_gives_jax_tokens(pool, mode, n_requests, jax_mode):
         assert r["pages_back"], rank
 
 
-@pytest.mark.parametrize("mode,n_requests,jax_mode", PAGED_CASES,
-                         ids=[c[0] for c in PAGED_CASES])
+# (KV heads, the cases' id prefix): the tiny decoder's 4 (the ids the
+# cases had before the grouped-query ones came) and the GQA decoder's 2
+SPLIT_PAGED = [pytest.param(mode, n, jax_mode, kv, id=f"{prefix}{mode}")
+               for kv, prefix in ((None, ""), (2, "gqa-"))
+               for mode, n, jax_mode in PAGED_CASES]
+
+
+@pytest.mark.parametrize("mode,n_requests,jax_mode,n_kv_heads", SPLIT_PAGED)
 def test_paged_tensor_split_gives_jax_tokens(pool, mode, n_requests,
-                                             jax_mode):
+                                             jax_mode, n_kv_heads):
     """The paged engine with the decoder split over ``tensor`` at (1, 1,
-    2): each rank's page pool holds 2 of the 4 KV heads, the kernel mode
-    reads those; JAX's tokens, every page back."""
-    s = _vocab512()
-    want = _jax_paged(jax_mode, n_requests)
+    2): each rank's page pool holds half the KV heads (2 of 4, or 1 of
+    the GQA decoder's 2), the kernel mode reads those; JAX's tokens,
+    every page back."""
+    s = _vocab512(n_kv_heads)
+    want = _jax_paged(jax_mode, n_requests, n_kv_heads)
     results = pool.run("batched", params=s.host, patches=[s.patches],
                        requests=_paged_requests(n_requests),
                        mesh_shape=(1, 1, 2), engine="paged",
-                       engine_kw={**PAGED_KW, "paged_attn": mode})
+                       engine_kw={**PAGED_KW, "paged_attn": mode},
+                       n_kv_heads=n_kv_heads)
     assert len(results) == 2
     for rank, r in enumerate(results):
         assert r["tokens"] == want, (rank, r["tokens"], want)
         assert r["pages_back"], rank
+        assert r["kv_heads"] == s.cfg.llm.n_kv_heads // 2, rank
 
 
 def test_slot_pool_sharded_gives_jax_tokens(pool):

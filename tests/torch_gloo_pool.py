@@ -299,7 +299,7 @@ def checkpoint_round_trip(params, batch, mesh_shape, run_dir):
 
 
 def _tiny_engine_args(params, mesh_shape, vocab_size, quantize=None,
-                      cfg=None):
+                      cfg=None, n_kv_heads=None):
     """(tiny config, or ``cfg``'s (``_vlm_config``), this rank's tree,
     tokenizer, mesh) for the serving tasks below: the whole tree on every
     rank when ``mesh_shape`` is None."""
@@ -314,29 +314,48 @@ def _tiny_engine_args(params, mesh_shape, vocab_size, quantize=None,
     mesh = _mesh(mesh_shape) if mesh_shape is not None else None
     if mesh is not None:
         tparams = shard_params(tparams, mesh)
-    return (_vlm_config(cfg, vocab_size), tparams,
+    return (_vlm_config(cfg, vocab_size, n_kv_heads), tparams,
             ByteLevelTokenizer(vocab_size), mesh)
 
 
 def serve(params, pixels, prompt, mesh_shape=None, *, vocab_size=512,
-          max_new=8, quantize=None, cfg=None):
-    """Greedy tokens of the tiny VLM's (or ``cfg``'s) ``ServingEngine``
-    (sharded on the mesh, or unsharded on every rank when ``mesh_shape``
-    is None)."""
+          max_new=8, quantize=None, cfg=None, n_kv_heads=None,
+          cache_heads=False):
+    """Greedy tokens of the tiny VLM's (or ``cfg``'s; ``n_kv_heads`` for
+    the tiny decoder's KV heads) ``ServingEngine`` (sharded on the mesh,
+    or unsharded on every rank when ``mesh_shape`` is None); with
+    ``cache_heads`` also the KV heads of the engine's cache on this
+    rank."""
+    from emmax_torch.serving import engine as eng_mod
     from emmax_torch.serving.engine import GenerateOptions, ServingEngine
 
     cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
-                                                vocab_size, quantize, cfg)
+                                                vocab_size, quantize, cfg,
+                                                n_kv_heads)
     engine = ServingEngine(cfg, tparams, tok,
                            options=GenerateOptions(eos_id=tok.eos_id),
                            device="cpu", mesh=mesh)
-    return engine.generate_ids([prompt], _tensors(pixels),
-                               max_new_tokens=max_new)[0]
+    heads = []
+    real = eng_mod.init_kv_cache
+
+    def recorded(*args, **kw):
+        cache = real(*args, **kw)
+        heads.append(cache["k"].shape[3])
+        return cache
+
+    eng_mod.init_kv_cache = recorded
+    try:
+        ids = engine.generate_ids([prompt], _tensors(pixels),
+                                  max_new_tokens=max_new)[0]
+    finally:
+        eng_mod.init_kv_cache = real
+    return {"tokens": ids, "cache_heads": heads} if cache_heads else ids
 
 
 def speculative(params, patches, calls, mesh_shape=None, *, vocab_size=512,
-                quantize=None, engine_kw=None):
-    """``SpeculativeEngine`` (sharded on the mesh) over ``calls``, each
+                quantize=None, engine_kw=None, n_kv_heads=None):
+    """``SpeculativeEngine`` of the tiny VLM (``n_kv_heads``: its
+    decoder's KV heads; sharded on the mesh) over ``calls``, each
     ``{"prompts", "max_new", "forced"?}``, on one engine and one patch
     tensor (so a call may refresh the previous call's tail): per call the
     tokens, ``last_steps`` and ``last_prefill``."""
@@ -344,7 +363,8 @@ def speculative(params, patches, calls, mesh_shape=None, *, vocab_size=512,
     from emmax_torch.serving.speculative import SpeculativeEngine
 
     cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
-                                                vocab_size, quantize)
+                                                vocab_size, quantize,
+                                                n_kv_heads=n_kv_heads)
     engine = SpeculativeEngine(cfg, tparams, tok,
                                options=GenerateOptions(eos_id=tok.eos_id),
                                device="cpu", mesh=mesh, **(engine_kw or {}))
@@ -360,16 +380,19 @@ def speculative(params, patches, calls, mesh_shape=None, *, vocab_size=512,
 
 
 def batched(params, patches, requests, mesh_shape=None, *, engine,
-            vocab_size=512, engine_kw=None):
+            vocab_size=512, engine_kw=None, n_kv_heads=None):
     """The paged (``engine="paged"``) or slot-pool (``"continuous"``)
-    engine, sharded on the mesh, over ``requests`` [(prompt, patch index,
-    max_new)] against ``patches`` (a list): each request's tokens, and
-    whether every page went back to the free list."""
+    engine of the tiny VLM (``n_kv_heads``: its decoder's KV heads),
+    sharded on the mesh, over ``requests`` [(prompt, patch index,
+    max_new)] against ``patches`` (a list): each request's tokens,
+    whether every page went back to the free list, and the KV heads of
+    this rank's page pool or slot pool."""
     from emmax_torch.serving.continuous import ContinuousServingEngine
     from emmax_torch.serving.paged import PagedServingEngine
 
     cfg, tparams, tok, mesh = _tiny_engine_args(params, mesh_shape,
-                                                vocab_size)
+                                                vocab_size,
+                                                n_kv_heads=n_kv_heads)
     cls = {"paged": PagedServingEngine,
            "continuous": ContinuousServingEngine}[engine]
     eng = cls(cfg, tparams, tok, device="cpu", mesh=mesh,
@@ -381,7 +404,9 @@ def batched(params, patches, requests, mesh_shape=None, *, engine,
     pages = getattr(eng, "free_pages", None)
     return {"tokens": [done[r] for r in rids],
             "pages_back": pages is None
-            or sorted(pages) == list(range(eng.n_pages))}
+            or sorted(pages) == list(range(eng.n_pages)),
+            "kv_heads": int(eng.pool["k"].shape[
+                0 if engine == "paged" else 3])}
 
 
 def vla_actions(params, frames, prompts, mesh_shape=None, *, vocab_size=512,
@@ -458,15 +483,23 @@ def oom_risk(params, mesh_shape, hbm_bytes):
     return _spec_bf16_oom_risk(local, hbm_bytes)
 
 
-def _vlm_config(cfg, vocab_size=512):
-    """The tiny VLM (``cfg`` None) or the one ``cfg`` describes:
-    ``{"vision": [(name, ViTConfig kwargs)], "phi": PhiConfig kwargs}``."""
+def _vlm_config(cfg, vocab_size=512, n_kv_heads=None):
+    """The tiny VLM (``cfg`` None; ``n_kv_heads`` replaces its decoder's 4
+    KV heads, the tests' grouped-query config) or the one ``cfg``
+    describes: ``{"vision": [(name, ViTConfig kwargs)], "phi": PhiConfig
+    kwargs}``."""
+    import dataclasses
+
     from emmax_torch.models.phi import PhiConfig
     from emmax_torch.models.vit import ViTConfig
     from emmax_torch.models.vlm import VLMConfig, tiny_vlm_config
 
     if cfg is None:
-        return tiny_vlm_config(vocab_size=vocab_size)
+        tiny = tiny_vlm_config(vocab_size=vocab_size)
+        if n_kv_heads is None:
+            return tiny
+        return dataclasses.replace(tiny, llm=dataclasses.replace(
+            tiny.llm, n_kv_heads=n_kv_heads))
     return VLMConfig(vision=tuple((n, ViTConfig(**kw))
                                   for n, kw in cfg["vision"]),
                      llm=PhiConfig(**cfg["phi"]))
@@ -485,9 +518,10 @@ def _full_grads(leaves, mesh):
 
 
 def split_forward(params, ids, mask, grad_w, mesh_shape, *, vocab_size=512,
-                  cache_len=32, cfg=None):
-    """The tiny decoder (fp32; Phi-2's where ``cfg`` names one) on the
-    mesh, from token ids: the embedded rows, the uncached logits, the
+                  cache_len=32, cfg=None, n_kv_heads=None):
+    """The tiny decoder (fp32; Phi-2's where ``cfg`` names one, the tiny
+    one's ``n_kv_heads`` where given) on the mesh, from token ids: the
+    embedded rows, the uncached logits, the
     gradient of ``sum(logits * grad_w)`` for every decoder leaf (each block
     gathered to the whole leaf; None on a mesh with data axes, where the
     ranks would sum the same batch's gradients), the logits of a cached
@@ -506,7 +540,7 @@ def split_forward(params, ids, mask, grad_w, mesh_shape, *, vocab_size=512,
     from emmax_torch.parallel import tensor as ptensor
     from emmax_torch.parallel.sharding import data_extent
 
-    cfg = _vlm_config(cfg, vocab_size).llm
+    cfg = _vlm_config(cfg, vocab_size, n_kv_heads).llm
     mesh = _mesh(mesh_shape)
     llm = shard_params(params_from_numpy(params), mesh)["llm"]
     split = ptensor.decoder_split(llm, cfg, mesh)
@@ -611,8 +645,23 @@ def split_ce(h, lm_head, labels, mesh_shape, *, chunk=5):
     return out
 
 
+def embed_rows(params, ids, mesh_shape):
+    """``embed_tokens`` of the tiny decoder's table on the mesh (vocab
+    split on ``tensor`` where it has > 1 rank) for ``ids``, and whether
+    the table was read vocab-parallel."""
+    from emmax_torch.bridge import params_from_numpy
+    from emmax_torch.models import llama
+    from emmax_torch.parallel import shard_params
+    from emmax_torch.parallel.tensor import vocab_split
+
+    mesh = _mesh(mesh_shape)
+    llm = shard_params(params_from_numpy(params), mesh)["llm"]
+    return {"rows": llama.embed_tokens(llm, _tensors(ids), mesh).numpy(),
+            "split": vocab_split(llm["embed"], 0, mesh)}
+
+
 TASKS = {f.__name__: f for f in (placement, train_steps,
                                  checkpoint_round_trip, serve, speculative,
                                  batched, vla_actions, speculative_guards,
                                  ring, oom_risk, split_forward,
-                                 split_encode, split_ce)}
+                                 split_encode, split_ce, embed_rows)}
